@@ -12,23 +12,27 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .device import resolve
 from .gauge.action import GaugeActionCoeffs
+from .gauge.smear import HypCoefs, StoutCoefs
 from .lattice import Lattice
 from .mcmc.theory import FermionSpec, GaugeActionSpec, LatticeFieldTheory
 from .solvers.base import SolverParams
 
 
-def gauge_from_reference(u_np: np.ndarray, device: torch.device | str = "cpu",
+def gauge_from_reference(u_np: np.ndarray,
+                         device: torch.device | str | None = None,
                          dtype: torch.dtype = torch.complex64
                          ) -> torch.Tensor:
     """A numpy gauge field (nd, nc, nc, X, Y, Z, T) -> a tensor with the
-    same layout on ``device``."""
+    same layout on ``device`` (default: the CUDA card; raises without
+    one)."""
     u_np = np.array(u_np)   # a writable copy: jax arrays are read-only
     if (u_np.ndim < 4 or u_np.shape[0] != u_np.ndim - 3
             or u_np.shape[1] != u_np.shape[2]):
         raise ValueError(f"not a (nd, nc, nc, *dims) gauge field: "
                          f"{u_np.shape}")
-    return torch.from_numpy(u_np).to(device=device, dtype=dtype)
+    return torch.from_numpy(u_np).to(device=resolve(device), dtype=dtype)
 
 
 def _solver_params(sp: Any) -> SolverParams | None:
@@ -40,17 +44,32 @@ def _solver_params(sp: Any) -> SolverParams | None:
                         mesh=getattr(sp, "mesh", None))
 
 
+def _smear(sm: Any) -> HypCoefs | StoutCoefs | None:
+    """HypCoefs (alpha1..3) or StoutCoefs (rho) by their attributes."""
+    if sm is None:
+        return None
+    if all(hasattr(sm, a) for a in ("alpha1", "alpha2", "alpha3")):
+        return HypCoefs(float(sm.alpha1), float(sm.alpha2),
+                        float(sm.alpha3))
+    if hasattr(sm, "rho"):
+        return StoutCoefs(float(sm.rho))
+    raise TypeError(f"smear must be nHYP or stout coefficients, not "
+                    f"{type(sm).__name__}")
+
+
 def _gauge_spec(g: Any) -> GaugeActionSpec:
     c = g.coeffs
     return GaugeActionSpec(
         GaugeActionCoeffs(float(c.plaq), float(c.rect), float(c.pgm),
                           float(c.adjplaq)),
-        steps=int(g.steps), scheme=str(g.scheme))
+        steps=int(g.steps), scheme=str(g.scheme),
+        smeared=bool(getattr(g, "smeared", False)))
 
 
 def _fermion_spec(f: Any) -> FermionSpec:
     return FermionSpec(kind=str(f.kind), mass=float(f.mass),
                        steps=int(f.steps), scheme=str(f.scheme),
+                       smeared=bool(getattr(f, "smeared", True)),
                        hmasses=tuple(getattr(f, "hmasses", ())))
 
 
@@ -60,14 +79,15 @@ def theory_from_reference(lat: Any, gauge: Any, fermions: Sequence[Any] = (),
                           force_solver_params: Any = None,
                           tau: float = 1.0) -> LatticeFieldTheory:
     """The port's theory from the JAX ``LatticeFieldTheory`` constructor
-    arguments (Lattice, GaugeActionSpec(s), FermionSpecs, SolverParams)."""
+    arguments (Lattice, GaugeActionSpec(s), FermionSpecs, smearing
+    coefficients, SolverParams)."""
     gauges = gauge if isinstance(gauge, (list, tuple)) else (gauge,)
     sp = _solver_params(solver_params)
     return LatticeFieldTheory(
         Lattice(tuple(lat.dims), nc=int(lat.nc)),
         tuple(_gauge_spec(g) for g in gauges),
         fermions=tuple(_fermion_spec(f) for f in fermions),
-        smear=smear, bc=str(bc),
+        smear=_smear(smear), bc=str(bc),
         solver_params=sp if sp is not None else SolverParams(
             r2req=1e-12, maxits=2000, restarts=3),
         force_solver_params=_solver_params(force_solver_params),

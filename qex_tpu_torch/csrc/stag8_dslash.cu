@@ -13,9 +13,17 @@
 // t >= 4: -1/2 U_mu(x-mu)^dag, backward hop in mu = t-4).  Optionally
 // the d2ee epilogue is fused: out = m2 * xfuse - sum_t L_t psi.
 //
+// The kernel is a template on the link element type.  With float links
+// it is the true operator; with __nv_bfloat16 links (kernel B1b, the
+// inner operator of the sloppy CG, links from `new_pallas_stag8(...,
+// links_dtype=bfloat16)`) each link element is widened to float
+// (exactly) before use, and the spinor, the sums and the output stay
+// float, as the TPU kernel does (stag_pallas_hisq.py:236-237, :349).
+//
 // Layouts (all contiguous, V = Th*Z*Y*X half-lattice sites, site index
 // (th, z, y, x) with x fastest):
-//   links  float32 (8, 2, 3, 3, Th, Z, Y*X)   split re/im, as qex_tpu's l_e/l_o
+//   links  float32 or bfloat16 (8, 2, 3, 3, Th, Z, Y*X)   split re/im,
+//          as qex_tpu's l_e/l_o
 //   psi    complex64 (3, Th, Z, Y*X)          interleaved re/im (float2)
 //   xfuse  complex64 (3, Th, Z, Y*X) or null
 //   out    complex64 (3, Th, Z, Y*X)
@@ -29,15 +37,18 @@
 // What bounds it on an H100: per output site it moves 8*72 B of links,
 // 8*24 B of gathered spinor and 24 B of output (792 B, f32) for 594
 // flops, 0.75 flop/B against the card's ~20 flop/B fp32 ridge, so it is
-// memory-bound.  The design answers that with one thread per output
+// memory-bound (with bf16 links: 8*36 B of links, 336 B/site counting
+// each spinor once, against 624 B/site for float links).  The design
+// answers that with one thread per output
 // site, x fastest, so every link-plane load, spinor load and store of a
 // warp covers consecutive addresses; the links (73% of the bytes) are
 // streamed exactly once; the eight neighbour spinor gathers re-read
 // spinors other threads of the block and of nearby blocks just read, so
 // most of the 192 B comes from L1/L2 rather than HBM; the fused d2ee
 // epilogue saves one extra read-and-write pass over the output.  Shared
-// memory tiling, TMA and reduced-precision links are later work.
+// memory tiling, TMA and wider (vectorised) link loads are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -47,8 +58,17 @@ namespace {
 
 constexpr int kThreads = 256;
 
+__device__ __forceinline__ float load_link(const float* p) {
+  return __ldg(p);
+}
+
+__device__ __forceinline__ float load_link(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+template <typename L>
 __global__ void __launch_bounds__(kThreads)
-stag8_dslash_kernel(const float* __restrict__ links,
+stag8_dslash_kernel(const L* __restrict__ links,
                     const float2* __restrict__ psi,
                     const float2* __restrict__ xfuse,
                     float2* __restrict__ out, float m2, int X, int Y,
@@ -78,7 +98,7 @@ stag8_dslash_kernel(const float* __restrict__ links,
   nb[7] = (s ? th : (th == 0 ? Th - 1 : th - 1)) * ZYX + z * YX + yx;
 
   const size_t Vs = static_cast<size_t>(V);
-  const float* lp = links + site;
+  const L* lp = links + site;
   float acc_r[3] = {0.f, 0.f, 0.f};
   float acc_i[3] = {0.f, 0.f, 0.f};
 #pragma unroll
@@ -90,8 +110,8 @@ stag8_dslash_kernel(const float* __restrict__ links,
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
-        const float lr = __ldg(lp + (t * 18 + a * 3 + b) * Vs);
-        const float li = __ldg(lp + (t * 18 + 9 + a * 3 + b) * Vs);
+        const float lr = load_link(lp + (t * 18 + a * 3 + b) * Vs);
+        const float li = load_link(lp + (t * 18 + 9 + a * 3 + b) * Vs);
         acc_r[a] += lr * v[b].x - li * v[b].y;
         acc_i[a] += lr * v[b].y + li * v[b].x;
       }
@@ -112,23 +132,40 @@ stag8_dslash_kernel(const float* __restrict__ links,
   }
 }
 
+template <typename L>
+int launch(const L* links, const void* psi, const void* xfuse, void* out,
+           float m2, int X, int Y, int Z, int Th, int parity_out,
+           void* stream) {
+  const long long V = static_cast<long long>(Th) * Z * Y * X;
+  if (V <= 0 || V > INT_MAX) return cudaErrorInvalidValue;  // int sites
+  const unsigned blocks =
+      static_cast<unsigned>((V + kThreads - 1) / kThreads);
+  stag8_dslash_kernel<L><<<blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      links, static_cast<const float2*>(psi),
+      static_cast<const float2*>(xfuse), static_cast<float2*>(out), m2, X,
+      Y, Z, Th, parity_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point, bound from Python with ctypes.  Launches on
+// Plain C entry points, bound from Python with ctypes.  Each launches on
 // `stream` (PyTorch's current stream), does not synchronise, and
 // returns cudaGetLastError() of the launch (0 on success).
 extern "C" int qex_stag8_dslash(const float* links, const void* psi,
                                 const void* xfuse, void* out, float m2,
                                 int X, int Y, int Z, int Th,
                                 int parity_out, void* stream) {
-  const long long V = static_cast<long long>(Th) * Z * Y * X;
-  if (V <= 0 || V > INT_MAX) return cudaErrorInvalidValue;  // int sites
-  const unsigned blocks =
-      static_cast<unsigned>((V + kThreads - 1) / kThreads);
-  stag8_dslash_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      links, static_cast<const float2*>(psi),
-      static_cast<const float2*>(xfuse), static_cast<float2*>(out), m2, X,
-      Y, Z, Th, parity_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch(links, psi, xfuse, out, m2, X, Y, Z, Th, parity_out,
+                stream);
+}
+
+// Kernel B1b: the same hop on bfloat16 links.
+extern "C" int qex_stag8_dslash_bf16(const void* links, const void* psi,
+                                     const void* xfuse, void* out, float m2,
+                                     int X, int Y, int Z, int Th,
+                                     int parity_out, void* stream) {
+  return launch(static_cast<const __nv_bfloat16*>(links), psi, xfuse, out,
+                m2, X, Y, Z, Th, parity_out, stream);
 }

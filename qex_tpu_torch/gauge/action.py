@@ -105,6 +105,17 @@ def gauge_force_hand(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
                         for mu in range(lat.nd)])
 
 
+def gauge_grad(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
+               ) -> torch.Tensor:
+    """torch-convention gradient of the gauge action from the hand
+    staple sums, -Sig_mu^dag (the conjugate of JAX's ``gauge_grad``,
+    -Sig_mu^T); the chain of a smeared gauge term."""
+    if c.plaq == 0.0:
+        _plaq_only(c)
+        return torch.zeros_like(u)
+    return torch.stack([-linalg.adj(s) for s in _staple_sums(c, lat, u)])
+
+
 def force_from_grad(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """MD force F (pdot = -F) from torch's autograd gradient ``g`` of a
     real action with respect to the links u: F = -tah(U g^dag) per link,

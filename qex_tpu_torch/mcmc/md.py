@@ -1,13 +1,18 @@
 """Multi-timescale molecular dynamics (port of ``ActionTerm``,
-``build_schedule``, ``_apply_schedule`` and ``run_trajectory`` from
-``qex_tpu.mcmc.md``).
+``build_schedule``, ``_shared_smeared_kick``, ``_apply_schedule`` and
+``run_trajectory`` from ``qex_tpu.mcmc.md``).
 
 Every action term has its own step count and integrator.  Each term's
 pattern expands over its own step dt_i = tau / steps_i into kick events
 at absolute gauge times; all events are merged and sorted, U advances by
 exp(dt p) between consecutive event times, and kicks at the same time
 apply back to back.  The trajectory is a plain Python loop over that
-schedule.  Force-gradient kicks and smeared terms are not ported.
+schedule.
+
+Terms on smeared links V = transform(U) that give a ``chain_force``
+share one smear per kick time: one forward of the transform with grad,
+the coefficient-weighted sum of their chains dS_i/dV, one backward, one
+TAH projection.  Force-gradient kicks are not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from ..hmc.integrators import Integrator, get_integrator
+from ..ops import group, linalg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +32,9 @@ class ActionTerm:
 
     action(u, phi) -> real scalar; force(u, phi) -> TAH force field
     (pdot = -force); heatbath(xi, u) -> phi from the term's Gaussian
-    noise ``xi`` (None for gauge terms).
+    noise ``xi`` (None for gauge terms).  A term on smeared links sets
+    ``smeared`` and gives ``chain_force(v, phi)``, the torch-convention
+    gradient dS/dV at the smeared links.
     """
 
     name: str
@@ -35,6 +43,8 @@ class ActionTerm:
     steps: int
     scheme: Integrator | str = "2MN"
     heatbath: Callable[[torch.Tensor, torch.Tensor], Any] | None = None
+    smeared: bool = False
+    chain_force: Callable[[torch.Tensor, Any], torch.Tensor] | None = None
 
     def get_scheme(self) -> Integrator:
         s = self.scheme
@@ -99,15 +109,46 @@ def build_schedule(terms: Sequence[ActionTerm], tau: float):
     return schedule
 
 
-def _apply_schedule(schedule, terms, u, p, phis, update_u):
+def _pullback(v: torch.Tensor, u: torch.Tensor, chain: torch.Tensor
+              ) -> torch.Tensor:
+    """dS/dU from dS/dV = ``chain`` through the recorded v = transform(u)
+    (torch convention): the smear's backward."""
+    (g,) = torch.autograd.grad(v, u, grad_outputs=chain)
+    return g
+
+
+def _shared_smeared_kick(transform, terms, kicks, u, p, phis):
+    """p += projTAH(U G^dag) with G the pullback through ``transform`` of
+    sum_i cdt_i dS_i/dV: one smear forward and one backward for all the
+    smeared kicks of one time."""
+    with torch.enable_grad():
+        uu = u.detach().requires_grad_(True)
+        v = transform(uu)
+        vd = v.detach()
+        chain = None
+        for (i, cdt, _x) in kicks:
+            c = cdt * terms[i].chain_force(vd, phis[i])
+            chain = c if chain is None else chain + c
+        gu = _pullback(v, uu, chain)
+    return p + torch.stack([group.tah(linalg.mul_na(u[mu], gu[mu]))
+                            for mu in range(u.shape[0])])
+
+
+def _apply_schedule(schedule, terms, u, p, phis, update_u, transform=None):
     for dt, kicks in schedule:
         if dt > _EPS:
             u = update_u(u, p, dt)
-        for (i, cdt, fg_a) in kicks:
-            if fg_a != 0.0:
-                raise NotImplementedError(
-                    "force-gradient kicks are not ported yet")
-            p = p - cdt * terms[i].force(u, phis[i])
+        if any(fg_a != 0.0 for (_i, _c, fg_a) in kicks):
+            raise NotImplementedError(
+                "force-gradient kicks are not ported yet (ROADMAP A4)")
+        shared = [k for k in kicks
+                  if transform is not None and terms[k[0]].smeared
+                  and terms[k[0]].chain_force is not None]
+        if shared:
+            p = _shared_smeared_kick(transform, terms, shared, u, p, phis)
+        for (i, cdt, _fg_a) in kicks:
+            if (i, cdt, _fg_a) not in shared:
+                p = p - cdt * terms[i].force(u, phis[i])
     return u, p
 
 
@@ -115,7 +156,11 @@ def run_trajectory(terms: Sequence[ActionTerm], u0: torch.Tensor,
                    p0: torch.Tensor, phis: Sequence[Any], tau: float,
                    update_u: Callable[[torch.Tensor, torch.Tensor, float],
                                       torch.Tensor],
+                   transform: Callable[[torch.Tensor], torch.Tensor]
+                   | None = None,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Integrate the composite multi-timescale trajectory."""
+    """Integrate the composite multi-timescale trajectory; ``transform``
+    (the smearing) enables the shared smeared kick."""
     schedule = build_schedule(terms, tau)
-    return _apply_schedule(schedule, terms, u0, p0, phis, update_u)
+    return _apply_schedule(schedule, terms, u0, p0, phis, update_u,
+                           transform)

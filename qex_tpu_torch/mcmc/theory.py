@@ -1,27 +1,34 @@
-"""Gauge + staggered matter HMC (port of ``GaugeActionSpec``,
-``FermionSpec`` and ``LatticeFieldTheory`` from ``qex_tpu.mcmc.theory``,
-unsmeared).
+"""Gauge + smeared staggered matter HMC (port of ``GaugeActionSpec``,
+``FermionSpec`` and ``LatticeFieldTheory`` from ``qex_tpu.mcmc.theory``).
 
 ``hmc_step(gen, u)`` draws the momenta, the pseudofermion noise and the
 Metropolis uniform from one ``torch.Generator``.  The pieces that
 consume draws are public so callers can inject their own:
 ``heatbath_from_noise(xis, u)``, ``trajectory(u, p, phis)`` and
 ``metropolis(dH, r)``.  H and its global sums accumulate in float64.
+
+With ``smear`` (``HypCoefs`` or ``StoutCoefs``) the matter terms act on
+the smeared links V = smear(U) (``FermionSpec.smeared``, default True)
+and so may gauge terms (``GaugeActionSpec.smeared``).  Eager torch would
+redo the smear for every term, so ``hamiltonian``, ``heatbath`` and
+``solver_report`` smear U once for all smeared terms, and the MD kicks
+of one time share one smear forward and one pullback (``mcmc.md``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
 from ..gauge.action import (GaugeActionCoeffs, force_from_action,
-                            full_action, gauge_force)
+                            full_action, gauge_force, gauge_grad)
+from ..gauge.smear import HypCoefs, StoutCoefs, nhyp_smear, stout_smear
 from ..hmc import hmc as hmc_mod
 from ..lattice import Lattice
-from ..ops import group
+from ..ops import group, linalg
 from ..physics import stag_hmc
 from ..solvers.base import SolverParams
 from .md import ActionTerm, run_trajectory
@@ -29,72 +36,110 @@ from .md import ActionTerm, run_trajectory
 
 @dataclasses.dataclass(frozen=True)
 class GaugeActionSpec:
-    """Gauge action + its MD timescale."""
+    """Gauge action + its MD timescale; ``smeared`` puts it on the
+    smeared links (the app's smeared-gauge term)."""
 
     coeffs: GaugeActionCoeffs
     steps: int = 10
     scheme: str = "2MN"
+    smeared: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class FermionSpec:
     """One staggered matter field: ``kind`` is "fermion" or "boson"
-    ("rooted" and "hisq", and Hasenbusch ``hmasses``, are not ported;
-    neither is smearing, so the JAX spec's ``smeared`` flag has no
-    counterpart)."""
+    ("rooted" and "hisq", and Hasenbusch ``hmasses``, are not ported)."""
 
     kind: str
     mass: float
     steps: int = 10
     scheme: str = "2MN"
+    smeared: bool = True
     hmasses: tuple = ()
 
 
+def _grad_at(action: Callable[[torch.Tensor], torch.Tensor],
+             v: torch.Tensor) -> torch.Tensor:
+    """torch-convention gradient of a real action at links v."""
+    with torch.enable_grad():
+        vv = v.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(action(vv), vv)
+    return g
+
+
 class LatticeFieldTheory:
-    """Gauge + matter HMC system (unsmeared: ``smear`` must be None)."""
+    """Gauge + matter HMC system."""
 
     def __init__(self, lat: Lattice,
                  gauge: GaugeActionSpec | Sequence[GaugeActionSpec],
                  fermions: Sequence[FermionSpec] = (),
-                 smear: Any = None,
+                 smear: HypCoefs | StoutCoefs | None = None,
                  bc: str = "pppa",
                  solver_params: SolverParams = SolverParams(
                      r2req=1e-12, maxits=2000, restarts=3),
                  force_solver_params: SolverParams | None = None,
                  tau: float = 1.0):
-        if smear is not None:
-            raise NotImplementedError(
-                "smeared links (nHYP/stout) are not ported yet "
-                "(ROADMAP queue A)")
+        if smear is not None and not isinstance(smear, (HypCoefs,
+                                                        StoutCoefs)):
+            raise TypeError(f"smear must be HypCoefs, StoutCoefs or None, "
+                            f"not {type(smear).__name__}")
         self.lat = lat
         self.gauges = ((gauge,) if isinstance(gauge, GaugeActionSpec)
                        else tuple(gauge))
         self.fermions = tuple(fermions)
+        self.smear_coefs = smear
         self.bc = bc
         self.solver_params = solver_params
         self.force_solver_params = force_solver_params
         self.tau = tau
+        self.matter_bases: list[tuple[str, Any, bool]] = []
+        # per term: (action at its own links, heatbath at its own links)
+        self._at_links: list[tuple[Callable, Callable | None]] = []
         self.terms = self._build_terms()
+
+    def _smear(self, u: torch.Tensor) -> torch.Tensor:
+        if self.smear_coefs is None:
+            return u
+        if isinstance(self.smear_coefs, StoutCoefs):
+            return stout_smear(self.smear_coefs, self.lat, u)
+        return nhyp_smear(self.smear_coefs, self.lat, u)
+
+    def _any_smeared(self) -> bool:
+        return any(t.smeared for t in self.terms)
 
     def _build_terms(self) -> list[ActionTerm]:
         lat = self.lat
         terms: list[ActionTerm] = []
         for gi, gspec in enumerate(self.gauges):
             gc = gspec.coeffs
+            smeared = gspec.smeared and self.smear_coefs is not None
 
-            def g_action(u, _phi, gc=gc):
-                return full_action(gc, lat, u)
+            def g_at(w, _phi, gc=gc):
+                return full_action(gc, lat, w)
 
-            def g_force(u, _phi, gc=gc):
-                return gauge_force(gc, lat, u)
+            def g_action(u, phi, g_at=g_at, smeared=smeared):
+                return g_at(self._smear(u) if smeared else u, phi)
 
-            terms.append(ActionTerm(f"gauge{gi}", g_action, g_force,
-                                    gspec.steps, gspec.scheme))
+            def g_force(u, _phi, gc=gc, smeared=smeared, g_action=g_action):
+                if not smeared:
+                    return gauge_force(gc, lat, u)
+                return force_from_action(lambda uu: g_action(uu, None), u)
+
+            def g_chain(v, _phi, gc=gc):
+                return gauge_grad(gc, lat, v)
+
+            name = "smeared_gauge" if smeared else "gauge"
+            terms.append(ActionTerm(f"{name}{gi}", g_action, g_force,
+                                    gspec.steps, gspec.scheme,
+                                    smeared=smeared,
+                                    chain_force=g_chain if smeared
+                                    else None))
+            self._at_links.append((g_at, None))
 
         for i, spec in enumerate(self.fermions):
             if spec.hmasses:
                 raise NotImplementedError(
-                    "Hasenbusch masses are not ported yet (ROADMAP queue A)")
+                    "Hasenbusch masses are not ported yet (ROADMAP A2)")
             if spec.kind == "fermion":
                 base = stag_hmc.StagFermion(
                     lat, spec.mass, self.bc, self.solver_params,
@@ -105,20 +150,48 @@ class LatticeFieldTheory:
             elif spec.kind in ("rooted", "hisq"):
                 raise NotImplementedError(
                     f"matter kind {spec.kind!r} is not ported yet "
-                    "(ROADMAP queue A)")
+                    "(ROADMAP A6, A7)")
             else:
                 raise ValueError(f"unknown matter kind {spec.kind!r}")
+            name = f"{spec.kind}{i}_m{spec.mass}"
+            smeared = spec.smeared and self.smear_coefs is not None
+            self.matter_bases.append((name, base, smeared))
             s_act = base.make_action_fn()
 
-            def f_force(u, phi, s_act=s_act):
-                return force_from_action(lambda uu: s_act(uu, phi), u)
+            def f_action(u, phi, s_act=s_act, smeared=smeared):
+                return s_act(self._smear(u) if smeared else u, phi)
 
-            terms.append(ActionTerm(f"{spec.kind}{i}_m{spec.mass}", s_act,
-                                    f_force, spec.steps, spec.scheme,
-                                    heatbath=base.heatbath_from_noise))
+            def f_force(u, phi, f_action=f_action):
+                return force_from_action(lambda uu: f_action(uu, phi), u)
+
+            def f_chain(v, phi, s_act=s_act):
+                return _grad_at(lambda vv: s_act(vv, phi), v)
+
+            def f_heat(xi, u, base=base, smeared=smeared):
+                return base.heatbath_from_noise(
+                    xi, self._smear(u) if smeared else u)
+
+            terms.append(ActionTerm(name, f_action, f_force, spec.steps,
+                                    spec.scheme, heatbath=f_heat,
+                                    smeared=smeared,
+                                    chain_force=f_chain if smeared
+                                    else None))
+            self._at_links.append((s_act, base.heatbath_from_noise))
         return terms
 
+    def _links_per_term(self, u: torch.Tensor) -> list[torch.Tensor]:
+        """Each term's links: smear(u) (computed once) or u."""
+        v = self._smear(u) if self._any_smeared() else u
+        return [v if t.smeared else u for t in self.terms]
+
     # -- HMC ---------------------------------------------------------------
+    @staticmethod
+    def draw_momenta(gen: torch.Generator, u: torch.Tensor) -> torch.Tensor:
+        """Gaussian TAH momenta, one field per direction."""
+        nd, nc = u.shape[0], u.shape[1]
+        return torch.stack([group.random_tah(gen, u.shape[3:], nc, u.dtype)
+                            for _ in range(nd)])
+
     def draw_noise(self, gen: torch.Generator, u: torch.Tensor
                    ) -> list[torch.Tensor | None]:
         """One Gaussian noise field per matter term (None for gauge)."""
@@ -127,9 +200,13 @@ class LatticeFieldTheory:
 
     def heatbath_from_noise(self, xis: Sequence[torch.Tensor | None],
                             u: torch.Tensor) -> list[Any]:
-        """Pseudofermion fields from the terms' noise fields."""
-        return [term.heatbath(xi, u) if term.heatbath else None
-                for term, xi in zip(self.terms, xis)]
+        """Pseudofermion fields from the terms' noise fields (one smear
+        of u for all smeared terms)."""
+        with torch.no_grad():
+            links = self._links_per_term(u)
+            return [heat(xi, w) if heat is not None else None
+                    for (_act, heat), w, xi in zip(self._at_links, links,
+                                                   xis)]
 
     def heatbath(self, gen: torch.Generator, u: torch.Tensor) -> list[Any]:
         """Refresh all pseudofermion fields."""
@@ -137,18 +214,22 @@ class LatticeFieldTheory:
 
     def hamiltonian(self, u: torch.Tensor, p: torch.Tensor,
                     phis: Sequence[Any]) -> torch.Tensor:
-        """H = K(p) + sum of the terms' actions, a float64 scalar."""
+        """H = K(p) + sum of the terms' actions, a float64 scalar (one
+        smear of u for all smeared terms)."""
         with torch.no_grad():
             h = hmc_mod.kinetic_energy(p)
-            for term, phi in zip(self.terms, phis):
-                h = h + term.action(u, phi).to(torch.float64)
+            links = self._links_per_term(u)
+            for (act, _heat), w, phi in zip(self._at_links, links, phis):
+                h = h + act(w, phi).to(torch.float64)
         return h
 
     def trajectory(self, u: torch.Tensor, p: torch.Tensor,
                    phis: Sequence[Any]) -> tuple[torch.Tensor, torch.Tensor]:
         """MD trajectory of length tau from (u, p): returns (u1, p1)."""
         return run_trajectory(self.terms, u, p, phis, self.tau,
-                              hmc_mod.gauge_update_u)
+                              hmc_mod.gauge_update_u,
+                              transform=(self._smear if self._any_smeared()
+                                         else None))
 
     @staticmethod
     def metropolis(dH: float, r: float) -> bool:
@@ -161,9 +242,7 @@ class LatticeFieldTheory:
                  ) -> tuple[torch.Tensor, hmc_mod.HMCState]:
         """One trajectory: momenta + pseudofermion heatbath, MD,
         Metropolis.  ``gen`` lives on u's device."""
-        nd, nc = u.shape[0], u.shape[1]
-        p = torch.stack([group.random_tah(gen, u.shape[3:], nc, u.dtype)
-                         for _ in range(nd)])
+        p = self.draw_momenta(gen, u)
         phis = self.heatbath(gen, u)
         h_old = float(self.hamiltonian(u, p, phis))
         u1, p1 = self.trajectory(u, p, phis)
@@ -174,3 +253,37 @@ class LatticeFieldTheory:
         acc = bool(always_accept) or self.metropolis(dH, r)
         return (u1 if acc else u), hmc_mod.HMCState(
             accepted=acc, dH=dH, h_old=h_old, h_new=h_new)
+
+    def reverse_check(self, gen: torch.Generator, u: torch.Tensor) -> dict:
+        """Reversibility of the full multi-timescale trajectory: draw as
+        ``hmc_step`` does, integrate, flip the momenta, integrate back;
+        H at the three points, dH forward and back, and the relative
+        squared deviations of the returned fields."""
+        p = self.draw_momenta(gen, u)
+        phis = self.heatbath(gen, u)
+        h0 = float(self.hamiltonian(u, p, phis))
+        u1, p1 = self.trajectory(u, p, phis)
+        h1 = float(self.hamiltonian(u1, p1, phis))
+        u2, p2 = self.trajectory(u1, -p1, phis)
+        h2 = float(self.hamiltonian(u2, p2, phis))
+        return {"h0": h0, "h1": h1, "h2": h2, "dH_fwd": h1 - h0,
+                "dH_rev": h2 - h0,
+                "u_dev2": float(linalg.norm2(u2 - u, torch.float64)
+                                / linalg.norm2(u, torch.float64)),
+                "p_dev2": float(linalg.norm2(p2 + p, torch.float64)
+                                / linalg.norm2(p, torch.float64))}
+
+    def solver_report(self, gen: torch.Generator, u: torch.Tensor) -> dict:
+        """Per matter term with a ``check_solve``: heatbath a phi from
+        ``gen``, re-solve at the action tolerance, and report
+        {term name: (iterations, true relative residual)}.  The PV boson
+        has no check, as in the JAX package."""
+        out = {}
+        with torch.no_grad():
+            v = (self._smear(u) if any(sm for _n, _b, sm in
+                                       self.matter_bases) else u)
+            for name, base, smeared in self.matter_bases:
+                if hasattr(base, "check_solve"):
+                    w = v if smeared else u
+                    out[name] = base.check_solve(w, base.heatbath(gen, w))
+        return out

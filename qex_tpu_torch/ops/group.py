@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve
 from . import linalg
 
 
@@ -50,9 +51,10 @@ def random_tah(gen: torch.Generator, shape: tuple[int, ...], n: int,
 
 
 def unit_gauge(lat, dtype: torch.dtype = torch.complex64,
-               device: torch.device | str = "cpu") -> torch.Tensor:
-    """Cold start: identity links, shape (nd, nc, nc, *dims)."""
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """Cold start: identity links, shape (nd, nc, nc, *dims), on
+    ``device`` (default: the CUDA card; raises without one)."""
     n = lat.nc
-    ident = torch.eye(n, dtype=dtype, device=device)
+    ident = torch.eye(n, dtype=dtype, device=resolve(device))
     ident = ident.reshape((1, n, n) + (1,) * lat.nd)
     return ident.expand(lat.gauge_shape()).contiguous()

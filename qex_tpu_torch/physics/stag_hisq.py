@@ -12,6 +12,13 @@ in the split layout ``(8, 2, 3, 3, Th, Z, Y*X)`` of ``new_pallas_stag8``
 applies it to a complex fast-layout vector ``(3, Th, Z, Y*X)``: a CUDA
 tensor goes through the hand-written kernel ``csrc/stag8_dslash.cu``
 (and nothing else), a CPU tensor through :func:`dslash_stag8_plain`.
+
+Links may be float32 (the true operator) or bfloat16 (the inner operator
+of the sloppy CG, ``links_dtype=torch.bfloat16``: the split planes are
+rounded to nearest even, as the JAX ``_split(l, bfloat16)``).  The
+kernel widens each bf16 link element to float32 and computes in float32,
+and the plain twin casts the links up to x's precision, so both compute
+the same operator on the same rounded links.
 """
 
 from __future__ import annotations
@@ -81,9 +88,10 @@ def _check_operand(name: str, v: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _lib():
+def _lib(links_dtype: torch.dtype):
     lib = _native.load("stag8_dslash.cu")
-    fn = lib.qex_stag8_dslash
+    fn = (lib.qex_stag8_dslash_bf16 if links_dtype == torch.bfloat16
+          else lib.qex_stag8_dslash)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -98,8 +106,10 @@ def dslash_stag8(p8: Stag8EO, x: torch.Tensor, parity_out: int,
     fast-layout vector (3, Th, Z, Y*X) on the source parity.
 
     CPU tensors take :func:`dslash_stag8_plain`.  CUDA tensors launch
-    the kernel (complex64 vectors, float32 links, all contiguous on
-    one device) or raise; ``dslash_stag8.launches`` counts launches.
+    the kernel (complex64 vectors, float32 or bfloat16 links, all
+    contiguous on one device) or raise; ``dslash_stag8.launches`` counts
+    launches of the float32-link kernel and ``dslash_stag8.launches_bf16``
+    those of the bfloat16-link kernel.
     """
     if x.device.type == "cpu":
         return dslash_stag8_plain(p8, x, parity_out, x_fuse, m2)
@@ -108,15 +118,16 @@ def dslash_stag8(p8: Stag8EO, x: torch.Tensor, parity_out: int,
     links = p8.l_e if parity_out == 0 else p8.l_o
     X, Y, Z, T = p8.lat.dims
     shape = (3, T // 2, Z, Y * X)
-    if (links.device != x.device or links.dtype != torch.float32
+    if (links.device != x.device
+            or links.dtype not in (torch.float32, torch.bfloat16)
             or tuple(links.shape) != (8, 2, 3, 3) + shape[1:]
             or not links.is_contiguous()):
-        raise ValueError("stag8 links must be contiguous float32 "
-                         f"(8, 2, 3, 3, {shape[1:]}) on {x.device}")
+        raise ValueError("stag8 links must be contiguous float32 or "
+                         f"bfloat16 (8, 2, 3, 3, {shape[1:]}) on {x.device}")
     _check_operand("x", x, shape, x.device)
     if x_fuse is not None:
         _check_operand("x_fuse", x_fuse, shape, x.device)
-    fn = _lib()
+    fn = _lib(links.dtype)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -124,13 +135,17 @@ def dslash_stag8(p8: Stag8EO, x: torch.Tensor, parity_out: int,
                  None if x_fuse is None else x_fuse.data_ptr(),
                  out.data_ptr(), float(m2), X, Y, Z, T // 2,
                  int(parity_out), stream)
-    dslash_stag8.launches += 1
+    if links.dtype == torch.bfloat16:
+        dslash_stag8.launches_bf16 += 1
+    else:
+        dslash_stag8.launches += 1
     if err != 0:
         raise RuntimeError(f"stag8 kernel launch failed: CUDA error {err}")
     return out
 
 
 dslash_stag8.launches = 0
+dslash_stag8.launches_bf16 = 0
 
 
 def d2ee_stag8(p8: Stag8EO, x_e: torch.Tensor, m: float) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Staggered pseudofermion and Pauli-Villars actions for HMC (port of the
-plain-fermion part of ``qex_tpu.physics.stag_hmc``).
+plain-fermion part of ``qex_tpu.physics.stag_hmc``, with
+``StagFermion.check_solve``).
 
 All actions live on even sites through the hermitian positive definite
 normal operator ``A(m) = m^2 - D_eo D_oe``:
@@ -131,6 +132,15 @@ class StagFermion:
                  ) -> torch.Tensor:
         return self.heatbath_from_noise(gaussian_eta(gen, self.lat, u.dtype),
                                         u)
+
+    def check_solve(self, u: torch.Tensor, phi: torch.Tensor
+                    ) -> tuple[int, float]:
+        """Re-solve at the action tolerance: (iterations, true relative
+        residual |A x - phi|^2 / |phi|^2 with the plain operator)."""
+        s = st.new_stag_eo(self.lat, u, self.bc)
+        x, stats = stag_solve.solve_ee(s, phi, self.m, self.params)
+        r = st.d2ee(s, x, self.m) - phi
+        return stats.iterations, float(linalg.norm2(r) / linalg.norm2(phi))
 
     def make_action_fn(self) -> Callable:
         return make_quad_inv_action(self.lat, self.bc, self.m,

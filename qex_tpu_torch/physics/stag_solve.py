@@ -29,20 +29,34 @@ def solve_ee(s: st.StaggeredEO, b_e: torch.Tensor, m: float,
     8-term CUDA kernel (``stag_hisq.d2ee_stag8``), a CPU tensor through
     the plain ``stag_fast.d2ee_fast``.  The layout conversions bracket
     the whole solve, not each iteration.
+
+    ``params.sloppy`` runs the inner CG on bf16-rounded links (kernel
+    B1b on the card) with the inner tolerance held at the bf16 noise
+    floor 1e-5, and the true-residual restarts on the 8-term operator
+    with links in the vector's precision (float32 on the card, kernel
+    B1).  A CPU tensor takes the same route through the plain twins.
     """
     params.check_supported()
     if s.lat.nd == 4:
         fs = sf.new_fast(s)
         bf = sf.to_fast(b_e, s.lat)
-        if bf.is_cuda:
-            p8 = sh.new_stag8(fs)
-            op = partial(sh.d2ee_stag8, p8, m=m)
+        op_true, floor = None, 1e-12
+        if params.sloppy:
+            op = partial(sh.d2ee_stag8,
+                         sh.new_stag8(fs, links_dtype=torch.bfloat16), m=m)
+            op_true = partial(sh.d2ee_stag8,
+                              sh.new_stag8(fs, links_dtype=bf.real.dtype),
+                              m=m)
+            floor = 1e-5
+        elif bf.is_cuda:
+            op = partial(sh.d2ee_stag8, sh.new_stag8(fs), m=m)
         else:
             op = partial(sf.d2ee_fast, fs, m=m)
         xf, stats = cg.cg_solve_restarted(op, bf, r2req=params.r2req,
                                           maxits=params.maxits,
                                           restarts=params.restarts,
-                                          inner_r2req_floor=1e-12)
+                                          op_true=op_true,
+                                          inner_r2req_floor=floor)
         return sf.from_fast(xf, s.lat), stats
     op = partial(st.d2ee, s, m=m)
     return cg.cg_solve_restarted(op, b_e, r2req=params.r2req,

@@ -16,10 +16,10 @@ class SolverParams:
     r2req: relative residual^2 target (|r|^2 / |b|^2).
     maxits: iteration cap per inner CG.
     restarts: defect-correction restart cap.
-    sloppy, mesh: the JAX package's bf16-link sloppy solve and sharded
-    multi-chip kernel routes; neither is ported yet (ROADMAP queue B:
-    kernel B1b, and B1/B2 under multi-GPU), so setting either raises in
-    the solve entry points.
+    sloppy: bf16-link inner CG iterations with true-residual restarts
+    on the full-precision operator (``stag_solve.solve_ee``).
+    mesh: the JAX package's sharded multi-chip kernel route; not ported
+    yet (ROADMAP A11), so setting it raises in the solve entry points.
     """
 
     r2req: float = 1e-12
@@ -29,14 +29,10 @@ class SolverParams:
     mesh: object | None = None
 
     def check_supported(self) -> None:
-        if self.sloppy:
-            raise NotImplementedError(
-                "SolverParams.sloppy: the bf16-link kernel is not ported "
-                "yet (ROADMAP queue B)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "SolverParams.mesh: multi-GPU solves are not ported yet "
-                "(ROADMAP queue B)")
+                "(ROADMAP A11)")
 
 
 @dataclasses.dataclass

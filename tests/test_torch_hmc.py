@@ -1,9 +1,10 @@
 """The ported HMC slice against qex_tpu on 4^4 (complex128): the same
 links, momenta and heatbath noise (drawn by JAX and injected) through
-JAX's LatticeFieldTheory (smear=None) and the port's theory built by
-convert.theory_from_reference.  Fields agree to 1e-9 relative and dH to
-1e-8 absolute (solves at r2req 1e-20).  Also the integrator tables and
-the MD schedule by equality."""
+JAX's LatticeFieldTheory and the port's theory built by
+convert.theory_from_reference, unsmeared and nHYP-smeared (heatbath, H,
+one shared smeared kick, a short trajectory).  Fields agree to 1e-9
+relative and dH to 1e-8 absolute (solves at r2req 1e-20).  Also the
+integrator tables and the MD schedule by equality."""
 
 import dataclasses
 
@@ -192,7 +193,7 @@ def test_kinetic_energy_and_update(slice_refs):
 
 def test_unported_theory_options_raise(slice_refs):
     args = dict(slice_refs["args"])
-    with pytest.raises(NotImplementedError, match="smear"):
+    with pytest.raises(TypeError, match="smear"):
         convert.theory_from_reference(**dict(args, smear=object()))
     for spec in (FermionSpec("fermion", 0.2, hmasses=(0.4,)),
                  FermionSpec("rooted", 0.2), FermionSpec("hisq", 0.2)):
@@ -209,3 +210,156 @@ def test_gauge_from_reference_layout(slice_refs):
     assert rel(n(got), u) < 1e-7
     with pytest.raises(ValueError):
         convert.gauge_from_reference(u[0, 0], "cpu")
+
+
+# --- the smeared composition (nHYP on the matter links and on a second,
+# smeared gauge term, as the app's sg_opt) ------------------------------
+
+def _smeared_args():
+    from qex_tpu.gauge.smear import HypCoefs as JHypCoefs
+    return dict(
+        lat=JLattice(DIMS),
+        gauge=[JGaugeActionSpec(jga.wilson(5.5), steps=2, scheme="2MN"),
+               JGaugeActionSpec(jga.wilson(0.5), steps=1, scheme="2MN",
+                                smeared=True)],
+        fermions=[JFermionSpec("fermion", 0.2, steps=1, scheme="2MN"),
+                  JFermionSpec("boson", 0.5, steps=1, scheme="2MN")],
+        smear=JHypCoefs(0.4, 0.5, 0.5), bc="pppa",
+        solver_params=JSolverParams(r2req=1e-20, maxits=1000, restarts=3),
+        tau=0.2)
+
+
+@pytest.fixture(scope="module")
+def smeared_refs():
+    """JAX draws and results for the smeared composition.  The
+    trajectory runs the reference schedule over compiled pieces: the
+    gauge update, the unsmeared gauge force, and md._shared_smeared_kick
+    with its kick coefficients as arguments (every shared group holds
+    the same three smeared terms), so each compiles once."""
+    args = _smeared_args()
+    jth = JTheory(**args)
+    jlat = args["lat"]
+    u = jnp.asarray(random_links(np.random.default_rng(29), jlat, 0.5))
+    kp, kf = jax.random.split(jax.random.PRNGKey(7))
+
+    def draws(kp, kf):
+        p = jax.vmap(lambda k: jgroup.random_tah(k, DIMS, 3, DT))(
+            jax.random.split(kp, 4))
+        keys = jax.random.split(kf, len(jth.terms))
+        return p, [jsh.gaussian_eta(k, jlat, DT) if term.heatbath
+                   else None for term, k in zip(jth.terms, keys)]
+
+    p, xis = compile_ref(draws, kp, kf)(kp, kf)
+    phis = compile_ref(jth.heatbath, kf, u)(kf, u)
+    hamiltonian = compile_ref(jth.hamiltonian, u, p, phis)
+    smeared = [i for i, term in enumerate(jth.terms) if term.smeared]
+
+    def kick(u, p, phis, cdts):
+        return jmd._shared_smeared_kick(
+            jth._smear, jth.terms, [(i, cdts[k], 0.0)
+                                    for k, i in enumerate(smeared)],
+            u, p, phis)
+
+    cdts0 = jnp.ones(len(smeared))
+    kick = compile_ref(kick, u, p, phis, cdts0)
+    force0 = compile_ref(jth.terms[0].force, u, None)
+    update = compile_ref(jhmc.gauge_update_u, u, p, 0.1)
+    uu, pp = u, p
+    for dt, kicks in jmd.build_schedule(jth.terms, jth.tau):
+        if dt > 1e-9:
+            uu = update(uu, pp, dt)
+        shared = [k for k in kicks if jth.terms[k[0]].smeared]
+        if shared:
+            assert [k[0] for k in shared] == smeared
+            pp = kick(uu, pp, phis, jnp.asarray([k[1] for k in shared]))
+        for (i, cdt, _fg) in kicks:
+            if not jth.terms[i].smeared:
+                pp = pp - cdt * force0(uu, None)
+    return dict(args=args, u=np.asarray(u), p=np.asarray(p),
+                xis=[None if x is None else np.asarray(x) for x in xis],
+                phis=[None if f is None else np.asarray(f) for f in phis],
+                h_old=float(hamiltonian(u, p, phis)),
+                kick0=np.asarray(kick(u, jnp.zeros_like(p), phis, cdts0)),
+                u1=np.asarray(uu), p1=np.asarray(pp),
+                h_new=float(hamiltonian(uu, pp, phis)), jterms=jth.terms)
+
+
+@pytest.fixture(scope="module")
+def smeared_port(smeared_refs):
+    r = smeared_refs
+    th = convert.theory_from_reference(**r["args"])
+    u, p = t(r["u"]), t(r["p"])
+    phis = th.heatbath_from_noise(
+        [None if x is None else t(x) for x in r["xis"]], u)
+    kicks = [(i, 1.0, 0.0) for i, term in enumerate(th.terms)
+             if term.smeared]
+    kick0 = md._shared_smeared_kick(th._smear, th.terms, kicks, u,
+                                    torch.zeros_like(p), phis)
+    u1, p1 = th.trajectory(u, p, phis)
+    return dict(th=th, phis=phis, h_old=float(th.hamiltonian(u, p, phis)),
+                kick0=kick0, u1=u1, p1=p1,
+                h_new=float(th.hamiltonian(u1, p1, phis)))
+
+
+def test_smeared_terms_and_schedule(smeared_refs, smeared_port):
+    th = smeared_port["th"]
+    assert ([(x.name, x.smeared) for x in th.terms]
+            == [(x.name, x.smeared) for x in smeared_refs["jterms"]])
+    assert (md.build_schedule(th.terms, th.tau)
+            == jmd.build_schedule(smeared_refs["jterms"], th.tau))
+
+
+def test_smeared_heatbath_and_hamiltonian(smeared_refs, smeared_port):
+    for got, ref in zip(smeared_port["phis"], smeared_refs["phis"]):
+        assert (got is None) == (ref is None)
+        if ref is not None:
+            assert rel(n(got), ref) < 1e-9
+    ref = smeared_refs["h_old"]
+    assert abs(smeared_port["h_old"] - ref) < 1e-9 * abs(ref)
+
+
+def test_shared_smeared_kick(smeared_refs, smeared_port):
+    assert rel(n(smeared_port["kick0"]), smeared_refs["kick0"]) < 1e-9
+
+
+def test_smeared_trajectory_fields_and_dH(smeared_refs, smeared_port):
+    r, g = smeared_refs, smeared_port
+    assert rel(n(g["u1"]), r["u1"]) < 1e-9
+    assert rel(n(g["p1"]), r["p1"]) < 1e-9
+    dh_ref = r["h_new"] - r["h_old"]
+    assert abs((g["h_new"] - g["h_old"]) - dh_ref) < 1e-8, dh_ref
+
+
+def test_smeared_solves_use_action_and_force_params(smeared_refs,
+                                                    monkeypatch):
+    """H and the heatbath solve at solver_params, MD kicks on the
+    smeared links at force_solver_params."""
+    from qex_tpu_torch.physics import stag_hmc, stag_solve
+    from qex_tpu_torch.solvers.base import SolverParams
+    r = smeared_refs
+    sp = SolverParams(r2req=1e-14, maxits=1000, restarts=3)
+    fp = SolverParams(r2req=1e-12, maxits=999, restarts=2)
+    th = LatticeFieldTheory(
+        convert.Lattice(DIMS),
+        [convert._gauge_spec(g) for g in r["args"]["gauge"]],
+        fermions=[convert._fermion_spec(f) for f in r["args"]["fermions"]],
+        smear=convert._smear(r["args"]["smear"]), solver_params=sp,
+        force_solver_params=fp, tau=0.2)
+    seen = []
+    solve_ee = stag_solve.solve_ee
+
+    def spy(s, b, m, params):
+        seen.append(params)
+        return solve_ee(s, b, m, params)
+
+    monkeypatch.setattr(stag_hmc.stag_solve, "solve_ee", spy)
+    u, p = t(r["u"]), t(r["p"])
+    phis = th.heatbath_from_noise(
+        [None if x is None else t(x) for x in r["xis"]], u)
+    th.hamiltonian(u, p, phis)
+    assert seen and all(x is sp for x in seen)
+    seen.clear()
+    kicks = [(i, 1.0, 0.0) for i, term in enumerate(th.terms)
+             if term.smeared]
+    md._shared_smeared_kick(th._smear, th.terms, kicks, u, p, phis)
+    assert seen and all(x is fp for x in seen)

@@ -1,4 +1,5 @@
-"""The stag8 CUDA kernel against its plain torch version, on a card.
+"""The stag8 CUDA kernels (f32 links, and bf16 links: kernel B1b)
+against their plain torch version, and a sloppy solve, on a card.
 
 Imports only torch and qex_tpu_torch, so it runs where jax is absent:
 
@@ -71,3 +72,58 @@ def test_stag8_kernel_rejects_bad_operands(cuda_device):
         sh.dslash_stag8(p8, x[:, :1], 0)
     with pytest.raises(ValueError):
         sh.dslash_stag8(p8, x.transpose(2, 3).contiguous().transpose(2, 3), 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(8, 4, 4, 8), (6, 4, 2, 6)])
+def test_stag8_bf16_kernel_matches_plain_on_card(cuda_device, dims):
+    """Kernel B1b: the same hop on bf16 links.  bf16 -> f32 is exact,
+    so kernel and twin differ only in summation order."""
+    lat = Lattice(dims)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    u = torch.stack([linalg.expm(0.7 * group.random_tah(
+        gen, lat.dims, 3, torch.complex64)) for _ in range(4)])
+    s = st.new_stag_eo(lat, u)
+    p8 = sh.new_stag8(s, links_dtype=torch.bfloat16)
+    assert p8.l_e.dtype == torch.bfloat16
+    x = torch.randn((3, dims[3] // 2, dims[2], dims[1] * dims[0]),
+                    dtype=torch.complex64, generator=gen, device=cuda_device)
+    before, before_f32 = sh.dslash_stag8.launches_bf16, sh.dslash_stag8.launches
+    for parity in (0, 1):
+        got = sh.dslash_stag8(p8, x, parity)
+        torch.cuda.synchronize()
+        assert _rel2(got, sh.dslash_stag8_plain(p8, x, parity)) < TOL
+    got = sh.d2ee_stag8(p8, x, 0.3)
+    ref = 0.09 * x - sh.dslash_stag8_plain(
+        p8, sh.dslash_stag8_plain(p8, x, 1), 0)
+    torch.cuda.synchronize()
+    assert _rel2(got, ref) < TOL
+    assert sh.dslash_stag8.launches_bf16 == before + 4
+    assert sh.dslash_stag8.launches == before_f32
+    # the bf16 operator is the f32 one up to link rounding (2^-9)
+    f32 = sh.d2ee_stag8(sh.new_stag8(s), x, 0.3)
+    assert 1e-8 < _rel2(got, f32) < 1e-4
+
+
+@pytest.mark.gpu
+def test_sloppy_solve_on_card(cuda_device):
+    """bf16-link inner CG with f32 true-residual restarts reaches the
+    requested true residual; both kernels launch."""
+    from qex_tpu_torch.physics import stag_solve
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice((8, 8, 8, 8))
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    u = torch.stack([linalg.expm(0.7 * group.random_tah(
+        gen, lat.dims, 3, torch.complex64)) for _ in range(4)])
+    s = st.new_stag_eo(lat, u)
+    b = torch.randn((3,) + lat.dims[:3] + (lat.dims[3] // 2,),
+                    dtype=torch.complex64, generator=gen, device=cuda_device)
+    before = (sh.dslash_stag8.launches, sh.dslash_stag8.launches_bf16)
+    x, stats = stag_solve.solve_ee(
+        s, b, 0.1, SolverParams(r2req=1e-10, maxits=2000, restarts=5,
+                                sloppy=True))
+    assert sh.dslash_stag8.launches > before[0]
+    assert sh.dslash_stag8.launches_bf16 > before[1]
+    s64 = st.new_stag_eo(lat, u.to(torch.complex128))
+    r = st.d2ee(s64, x.to(torch.complex128), 0.1) - b.to(torch.complex128)
+    assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-9

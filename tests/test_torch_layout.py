@@ -8,6 +8,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_helpers import ginibre, n, t
 from qex_tpu.lattice import Lattice as JLattice
@@ -82,11 +83,39 @@ def test_shift_exact(fields, mu):
 
 
 def test_package_imports_no_jax():
-    code = ("import sys, qex_tpu_torch, qex_tpu_torch.convert, "
-            "qex_tpu_torch.mcmc.theory, qex_tpu_torch.physics.stag_hisq; "
+    """Every module of the port imports without loading jax or
+    qex_tpu."""
+    mods = sorted(
+        "qex_tpu_torch." + ".".join(p.relative_to(REPO / "qex_tpu_torch")
+                                    .with_suffix("").parts)
+        for p in (REPO / "qex_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    assert {"qex_tpu_torch.gauge.smear", "qex_tpu_torch.apps.staghmc_spv",
+            "qex_tpu_torch.utils.config", "qex_tpu_torch.io.checkpoint",
+            "qex_tpu_torch.device"} <= set(mods)
+    code = ("import sys, importlib; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'qex_tpu.'))]; "
             "print(bad); sys.exit(1 if bad or 'jax' in sys.modules else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device argument the entry points run on the CUDA card,
+    and on a host without one they raise instead of building CPU
+    tensors."""
+    from qex_tpu_torch import convert
+    from qex_tpu_torch.ops import group
+    u = np.zeros((4, 3, 3) + DIMS, complex)
+    if torch.cuda.is_available():
+        assert group.unit_gauge(LAT).is_cuda
+        assert convert.gauge_from_reference(u).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        group.unit_gauge(LAT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.gauge_from_reference(u)
+    assert group.unit_gauge(LAT, device="cpu").device.type == "cpu"

@@ -80,7 +80,7 @@ def test_tah_and_expm(mats):
 
 def test_unit_gauge():
     ref = jgroup.unit_gauge(JLattice(DIMS), jnp.complex128)
-    got = group.unit_gauge(Lattice(DIMS), torch.complex128)
+    got = group.unit_gauge(Lattice(DIMS), torch.complex128, "cpu")
     assert np.array_equal(n(got), np.asarray(ref))
 
 
