@@ -7,9 +7,11 @@ Phases, each printed as one JSON line:
   1. device: the card's name and power limit (nvidia-smi), the kernel build;
   2. kernel: the 8-term staggered CUDA kernel with float32 links (B1) and
      with bfloat16 links (B1b) against their plain torch version at 24^4
-     and 8x4x4x8, with times, GB/s (624 and 336 B/site: each input read
-     once, the output written once), bounds and the share of this card's
-     measured stream bandwidth;
+     and 8x4x4x8, and the 16-term HISQ kernel with float32 (B2) and
+     bfloat16 links (B2b) at 24^4, 8x4x4x8 and 4^4, with times, GB/s
+     (624, 336, 1,200 and 624 B/site: each input read once, the output
+     written once), bounds and the share of this card's measured stream
+     bandwidth;
   3. solve: stag_solve.solve at 24^4, m=0.05, r2req 1e-10 (complex64),
      with float32 links and sloppy (bf16 inner iterations, float32
      true-residual restarts);
@@ -27,20 +29,31 @@ Phases, each printed as one JSON line:
      checkpoint after each, then a resume from the first checkpoint that
      must repeat the second trajectory;
   8. ab_smeared: phase 5 for the smeared action with sloppy solves, from
-     smoother links (see AB_SMEARED_START).
+     smoother links (see AB_SMEARED_START);
+  9. hisq_solve: BASELINE config 5's solve at 32^3x64: HISQ fattening,
+     HisqFermion.solve_multi at masses 0.05-0.4 on B2 with each mass's
+     true residual, the sloppy solve at m=0.05 (B2b inner iterations, B2
+     true residuals), and B2/B2b timed at that volume;
+ 10. hmc_hisq: two trajectories of a HISQ theory (Wilson beta=7.0 + one
+     HISQ fermion m=0.05) at 24^4 from smoother links (see HISQ_START),
+     the second split into fattening forward, fattening pullback, solves
+     and the rest;
+ 11. ab_hisq: phase 5 for the HISQ theory at 8^4 from those links.
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7) and read just after it.  Then the card line, the kernels summary and,
+7, 9, 10) and read just after it.  Then the card line, the kernels summary and,
 last, the ok line.  Any failed check raises, so the script exits non-zero
 and prints no ok line; without a CUDA device it exits non-zero at once.
 
-``--profile`` instead runs a 24^4 f32 solve, a sloppy solve and one
-smeared config-4 trajectory under torch.profiler and prints each one's
-wall time, device kernel count, device-idle share and top operators.
+``--profile`` instead runs a 24^4 f32 solve, a sloppy solve, one smeared
+config-4 trajectory and one HISQ trajectory under torch.profiler and
+prints each one's wall time, device kernel count, device-idle share and
+top operators.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -78,12 +91,35 @@ TOL_AB_DH_REL_H = 1e-5
 # So the rough start cannot tell a kernel fault from rounding.  The
 # tolerances stay those of phase 5.
 AB_SMEARED_START = 0.3
+# The HISQ phases 10 and 11 start from expm(0.3 tah) links too.  From
+# the expm(0.7 tah) start of the other phases the first HISQ force at
+# 24^4 reaches 1.9e12 (max |F|; python -m qex_tpu_torch.apps.hisq_forces
+# prints it): a few first-level fat7 links are nearly singular, where the
+# exact derivative of the polar projection diverges (ROADMAP C4, C5), and
+# the first gauge update overflows to NaN.  From expm(0.3 tah) the force
+# stays below 1.5.
+HISQ_START = 0.3
 TOL_RESUME = 1e-10      # relative: a resume repeats the chain exactly
+# The multishift solve has no restarts, so its true residual is held to
+# 100x its r2req (phase 9).
+TOL_MULTI = 1e-8
 # H100 SXM data sheet (dense, 700 W): the bounds of the kernels line
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-FLOPS_PER_SITE = 594
-BYTES_PER_SITE = {torch.float32: 624, torch.bfloat16: 336}
+# per output site: flops (the reference's models) and bytes (links,
+# spinor and output, each once) of the 8- and 16-term hops
+FLOPS_PER_SITE = {"stag8": 594, "hisq16": 1152}
+BYTES_PER_SITE = {("stag8", torch.float32): 624,
+                  ("stag8", torch.bfloat16): 336,
+                  ("hisq16", torch.float32): 1200,
+                  ("hisq16", torch.bfloat16): 624}
+KERNELS = {   # name: (hop kind, links dtype, launch counter)
+    "stag8_dslash": ("stag8", torch.float32, "launches"),
+    "stag8_dslash_bf16": ("stag8", torch.bfloat16, "launches_bf16"),
+    "hisq16_dslash": ("hisq16", torch.float32, "launches"),
+    "hisq16_dslash_bf16": ("hisq16", torch.bfloat16, "launches_bf16"),
+}
+SOURCES = {"stag8": "stag8_dslash.cu", "hisq16": "hisq16_dslash.cu"}
 # where the chip run keeps the app's checkpoints (gitignored)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
@@ -134,16 +170,19 @@ def random_links(lat, gen, dtype=torch.complex64, scale: float = 0.7):
         gen, lat.dims, lat.nc, dtype)) for _ in range(lat.nd)])
 
 
-def reset_counts() -> None:
+def _wrapper(kind: str):
     from qex_tpu_torch.physics import stag_hisq as sh
-    sh.dslash_stag8.launches = 0
-    sh.dslash_stag8.launches_bf16 = 0
+    return sh.dslash_stag8 if kind == "stag8" else sh.dslash_hisq16
+
+
+def reset_counts() -> None:
+    for kind, _ldt, counter in KERNELS.values():
+        setattr(_wrapper(kind), counter, 0)
 
 
 def read_counts() -> dict:
-    from qex_tpu_torch.physics import stag_hisq as sh
-    return {"stag8_dslash": sh.dslash_stag8.launches,
-            "stag8_dslash_bf16": sh.dslash_stag8.launches_bf16}
+    return {name: getattr(_wrapper(kind), counter)
+            for name, (kind, _ldt, counter) in KERNELS.items()}
 
 
 def phase_device() -> dict:
@@ -153,17 +192,24 @@ def phase_device() -> dict:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     from qex_tpu_torch import _native
+    sources = sorted(SOURCES.values())
     t0 = time.perf_counter()
-    _native.load("stag8_dslash.cu")
+    _native.build(sources)                 # one nvcc each, in parallel
+    for src in sources:
+        _native.load(src)
     build_s = time.perf_counter() - t0
-    log = _native.BUILD_LOG.get("stag8_dslash.cu", {})
-    ptxas = [ln.strip() for ln in log.get("ptxas", "").splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    nvcc, ptxas = {}, {}
+    for src in sources:
+        log = _native.BUILD_LOG.get(src, {})
+        nvcc[src] = log.get("seconds")
+        ptxas[src] = [ln.strip() for ln in log.get("ptxas", "").splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling" in ln]
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
-          "nvcc_s": log.get("seconds"), "ptxas": ptxas})
+          "nvcc_s": nvcc, "ptxas": ptxas})
     return {"smi": smi}
 
 
@@ -177,80 +223,132 @@ def stream_bandwidth_gbs() -> float:
     return 2 * 4 * n / (ms * 1e-3) / 1e9
 
 
-def check_kernel(dims, gen, links_dtype, timing: bool) -> dict:
-    """One kernel (links in ``links_dtype``) against its plain twin on
-    the same links: both parities and the fused d2ee."""
-    from qex_tpu_torch.lattice import Lattice
+def hisq_links(lat, u):
+    """Fat and long links of u, phased and smeared as
+    HisqFermion._links does (forward only)."""
+    from qex_tpu_torch.gauge import fat7
+    from qex_tpu_torch.physics import staggered as st
+    return fat7.hisq_links_lowmem(lat, st.phase_links(lat, u))
+
+
+def hop_fns(kind: str):
+    """(hop, plain hop, d2ee) of the 8- or 16-term kernel."""
+    from qex_tpu_torch.physics import stag_hisq as sh
+    if kind == "stag8":
+        return sh.dslash_stag8, sh.dslash_stag8_plain, sh.d2ee_stag8
+    return sh.dslash_hisq16, sh.dslash_hisq16_plain, sh.d2ee_hisq16
+
+
+def make_ops(kind: str, lat, u):
+    """links dtype -> kernel-ready operator of links u (the 16-term one
+    on their HISQ fat and long links, computed once)."""
     from qex_tpu_torch.physics import stag_hisq as sh
     from qex_tpu_torch.physics import staggered as st
-    lat = Lattice(dims)
-    u = random_links(lat, gen)
-    s = st.new_stag_eo(lat, u)
-    p8 = sh.new_stag8(s, links_dtype=links_dtype)
-    x = torch.randn((3, dims[3] // 2, dims[2], dims[1] * dims[0]),
-                    dtype=torch.complex64, generator=gen, device="cuda")
-    res = {"dims": list(dims), "links": str(links_dtype)}
-    max_abs = 0.0
+    if kind == "stag8":
+        s = st.new_stag_eo(lat, u)
+        return lambda ldt: sh.new_stag8(s, links_dtype=ldt)
+    s3 = st.new_stag3_eo(lat, *hisq_links(lat, u))
+    return lambda ldt: sh.new_hisq16(s3, links_dtype=ldt)
+
+
+def compare_hop(name: str, op, x, f32_op=None) -> dict:
+    """Kernel against its plain twin on the same links: both parities
+    and the fused d2ee; raises past TOL_KERNEL."""
+    kind = KERNELS[name][0]
+    hop, plain, d2ee = hop_fns(kind)
+    res, max_abs = {}, 0.0
     for parity in (0, 1):
-        got = sh.dslash_stag8(p8, x, parity)
-        ref = sh.dslash_stag8_plain(p8, x, parity)
+        got = hop(op, x, parity)
+        ref = plain(op, x, parity)
         torch.cuda.synchronize()
-        dev = rel2(got, ref)
+        res[f"rel2_parity{parity}"] = rel2(got, ref)
         max_abs = max(max_abs, float((got - ref).abs().max()))
-        res[f"rel2_parity{parity}"] = dev
-        if not dev <= TOL_KERNEL:
-            raise AssertionError(f"dslash_stag8 {links_dtype} parity "
-                                 f"{parity} at {dims}: rel2 {dev}")
     m = 0.05
-    got = sh.d2ee_stag8(p8, x, m)
-    ref = (m * m) * x - sh.dslash_stag8_plain(
-        p8, sh.dslash_stag8_plain(p8, x, 1), 0)
+    got = d2ee(op, x, m)
+    ref = (m * m) * x - plain(op, plain(op, x, 1), 0)
     torch.cuda.synchronize()
-    dev = rel2(got, ref)
-    res["rel2_d2ee"] = dev
-    max_abs = max(max_abs, float((got - ref).abs().max()))
-    if not dev <= TOL_KERNEL:
-        raise AssertionError(f"d2ee_stag8 {links_dtype} at {dims}: "
-                             f"rel2 {dev}")
-    res["max_abs_err"] = max_abs
-    if links_dtype == torch.bfloat16:
+    res["rel2_d2ee"] = rel2(got, ref)
+    res["max_abs_err"] = max(max_abs, float((got - ref).abs().max()))
+    if f32_op is not None:
         # information only: the bf16 operator against the f32 one
-        res["rel2_bf16_vs_f32_d2ee"] = rel2(
-            got, sh.d2ee_stag8(sh.new_stag8(s), x, m))
-    if timing:
-        sites = lat.volume // 2
-        nbytes = BYTES_PER_SITE[links_dtype] * sites
-        k_ms = cuda_time_ms(lambda: sh.dslash_stag8(p8, x, 0), reps=200)
-        p_ms = cuda_time_ms(lambda: sh.dslash_stag8_plain(p8, x, 0),
-                            reps=10)
-        ee_ms = cuda_time_ms(lambda: sh.d2ee_stag8(p8, x, m), reps=100)
-        bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-        flops_ms = FLOPS_PER_SITE * sites / PEAK_F32_FLOPS * 1e3
-        res.update({
-            "ms": k_ms, "plain_ms": p_ms, "d2ee_ms": ee_ms,
-            "gflops": FLOPS_PER_SITE * sites / (k_ms * 1e-3) / 1e9,
-            "bytes": nbytes, "gbs": nbytes / (k_ms * 1e-3) / 1e9,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"})
+        res["rel2_bf16_vs_f32_d2ee"] = rel2(got, d2ee(f32_op, x, m))
+    for key in ("rel2_parity0", "rel2_parity1", "rel2_d2ee"):
+        if not res[key] <= TOL_KERNEL:
+            raise AssertionError(f"{name} at {tuple(x.shape)}: {key} "
+                                 f"{res[key]}")
     return res
 
 
+def time_hop(name: str, op, x, sites: int) -> dict:
+    """Kernel, plain twin and fused d2ee times (CUDA events), GB/s by
+    the bytes model and the kernel's bound at the data-sheet peaks."""
+    kind, ldt, _ = KERNELS[name]
+    hop, plain, d2ee = hop_fns(kind)
+    nbytes = BYTES_PER_SITE[(kind, ldt)] * sites
+    flops = FLOPS_PER_SITE[kind] * sites
+    k_ms = cuda_time_ms(lambda: hop(op, x, 0), reps=200)
+    p_ms = cuda_time_ms(lambda: plain(op, x, 0), reps=10)
+    ee_ms = cuda_time_ms(lambda: d2ee(op, x, 0.05), reps=100)
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    flops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return {"ms": k_ms, "plain_ms": p_ms, "d2ee_ms": ee_ms,
+            "gflops": flops / (k_ms * 1e-3) / 1e9,
+            "bytes": nbytes, "gbs": nbytes / (k_ms * 1e-3) / 1e9,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def add_stream_share(rec: dict, bw: float) -> None:
+    rec["stream_gbs"] = bw
+    rec["share_of_stream_bw"] = rec["gbs"] / bw
+    rec["bound_at_stream_us"] = rec["bytes"] / (bw * 1e9) * 1e6
+
+
+def fast_vector(lat, gen):
+    X, Y, Z, T = lat.dims
+    return torch.randn((3, T // 2, Z, Y * X), dtype=torch.complex64,
+                       generator=gen, device=gen.device)
+
+
+def dims_label(dims) -> str:
+    return (f"{dims[0]}^4" if len(set(dims)) == 1
+            else "x".join(str(d) for d in dims))
+
+
 def phase_kernel(gen) -> dict:
+    """Each kernel against its plain twin at 24^4 (timed), 8x4x4x8 and,
+    for the 16-term kernels, 4^4 (Th = 2, distance-3 wraps at extent
+    4), on expm(0.7 tah) links (HISQ-smeared for the 16-term ones)."""
+    from qex_tpu_torch.lattice import Lattice
     out = {}
-    for name, ldt in (("stag8_dslash", torch.float32),
-                      ("stag8_dslash_bf16", torch.bfloat16)):
-        big = check_kernel((24, 24, 24, 24), gen, ldt, timing=True)
-        small = check_kernel((8, 4, 4, 8), gen, ldt, timing=False)
-        big["max_abs_err"] = max(big["max_abs_err"], small["max_abs_err"])
-        out[name] = {"24^4": big, "8x4x4x8": small}
+    for kind in ("stag8", "hisq16"):
+        sizes = [(24, 24, 24, 24), (8, 4, 4, 8)]
+        if kind == "hisq16":
+            sizes.append((4, 4, 4, 4))
+        for i, dims in enumerate(sizes):
+            lat = Lattice(dims)
+            build = make_ops(kind, lat, random_links(lat, gen))
+            f32_op = build(torch.float32)
+            x = fast_vector(lat, gen)
+            for name, (k, ldt, _c) in KERNELS.items():
+                if k != kind:
+                    continue
+                op = f32_op if ldt == torch.float32 else build(ldt)
+                rec = {"dims": list(dims), "links": str(ldt)}
+                rec.update(compare_hop(
+                    name, op, x, f32_op if ldt == torch.bfloat16 else None))
+                if i == 0:
+                    rec.update(time_hop(name, op, x, lat.volume // 2))
+                out.setdefault(name, {})[dims_label(dims)] = rec
     bw = stream_bandwidth_gbs()
-    for rec in out.values():
-        big = rec["24^4"]
-        big["stream_gbs"] = bw
-        big["share_of_stream_bw"] = big["gbs"] / bw
-        big["bound_at_stream_us"] = big["bytes"] / (bw * 1e9) * 1e6
+    for recs in out.values():
+        add_stream_share(recs["24^4"], bw)
+        recs["24^4"]["max_abs_err"] = max(r["max_abs_err"]
+                                          for r in recs.values())
     emit({"phase": "kernel", **out})
-    return {k: v["24^4"] for k, v in out.items()}
+    res = {k: v["24^4"] for k, v in out.items()}
+    res["stream_gbs"] = bw
+    return res
 
 
 def phase_solve(gen) -> dict:
@@ -264,7 +362,7 @@ def phase_solve(gen) -> dict:
     u = random_links(lat, gen)
     s = st.new_stag_eo(lat, u)
     b = torch.randn(lat.vector_shape(), dtype=torch.complex64,
-                    generator=gen, device="cuda")
+                    generator=gen, device=gen.device)
     s64 = st.new_stag_eo(lat, u.to(torch.complex128))
     be, bo = (v.to(torch.complex128) for v in eo.pack(b, 4))
     rhs = m * be - st.dslash_eo(s64, bo, 0)
@@ -331,10 +429,20 @@ def config4_theory(lat, smear=None, sloppy: bool = False):
         tau=0.5)
 
 
-def run_trajectories(th, lat, gen, u, n: int, tag: str) -> tuple:
+def hisq_theory(lat):
+    """Config 5's fermion in an HMC (qex_tpu_torch.apps.hisq_forces)."""
+    from qex_tpu_torch.apps.hisq_forces import hisq_theory as build
+    return build(lat)
+
+
+def run_trajectories(th, lat, gen, u, n: int, tag: str,
+                     need: str = "stag8_dslash", first: int = 0) -> tuple:
+    """``n`` hmc_step calls, each with its time, dH, plaquette, kernel
+    launches and peak memory; raises on a non-finite dH, a plaquette
+    outside (0, 1) or no launch of kernel ``need``."""
     from qex_tpu_torch.gauge import loops
     trajs = []
-    for i in range(n):
+    for i in range(first, first + n):
         before = read_counts()
         torch.cuda.reset_peak_memory_stats()
         (u, state), secs = timed_once_s(lambda: th.hmc_step(gen, u))
@@ -350,8 +458,8 @@ def run_trajectories(th, lat, gen, u, n: int, tag: str) -> tuple:
             raise AssertionError(f"{tag} traj {i}: dH is {state.dH}")
         if not 0.0 < plaq < 1.0:
             raise AssertionError(f"{tag} traj {i}: plaquette {plaq}")
-        if rec["kernel_launches"]["stag8_dslash"] <= 0:
-            raise AssertionError(f"{tag} traj {i}: no stag8 kernel launch")
+        if rec["kernel_launches"][need] <= 0:
+            raise AssertionError(f"{tag} traj {i}: no {need} launch")
     return u, trajs
 
 
@@ -375,33 +483,55 @@ def phase_hmc(gen) -> dict:
 
 
 @contextlib.contextmanager
-def split_timer(th):
-    """Host-clock split of trajectories of ``th`` into smear forward,
-    smear pullback and solves, each bracketed by device syncs (which
-    cost a little time of their own); the rest is the remainder."""
-    from qex_tpu_torch.mcmc import md
-    from qex_tpu_torch.physics import stag_solve
-    acc = {"smear_forward": 0.0, "smear_pullback": 0.0, "solves": 0.0}
-    saved = (th._smear, md._pullback, stag_solve.solve_ee)
+def split_timer(patches):
+    """Host-clock split of what runs inside: each (key, owner, attribute)
+    of ``patches`` is wrapped to add its time to ``key``, bracketed by
+    device syncs (which cost a little time of their own).  Times are
+    exclusive: a wrapped call inside another is subtracted from the
+    outer one."""
+    acc = {key: 0.0 for key, _o, _a in patches}
+    inner = []                  # time of wrapped calls nested in each open
+    saved = []
 
     def timed(key, fn):
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            acc[key] += time.perf_counter() - t0
-            return out
+            inner.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                acc[key] += dt - inner.pop()
+                if inner:
+                    inner[-1] += dt
         return wrapper
 
-    th._smear = timed("smear_forward", saved[0])
-    md._pullback = timed("smear_pullback", saved[1])
-    stag_solve.solve_ee = timed("solves", saved[2])
+    for key, owner, attr in patches:
+        saved.append((owner, attr, attr in vars(owner),
+                      vars(owner).get(attr)))
+        setattr(owner, attr, timed(key, getattr(owner, attr)))
     try:
         yield acc
     finally:
-        del th._smear
-        md._pullback, stag_solve.solve_ee = saved[1], saved[2]
+        for owner, attr, had, old in reversed(saved):
+            if had:
+                setattr(owner, attr, old)
+            else:
+                delattr(owner, attr)
+
+
+def split_run(th, lat, gen, u, patches, tag, need, first):
+    """One trajectory under :func:`split_timer`; returns (u, its record,
+    the split with the remainder as "rest" and the wall time)."""
+    with split_timer(patches) as split:
+        t0 = time.perf_counter()
+        u, trajs = run_trajectories(th, lat, gen, u, 1, tag, need, first)
+        wall = time.perf_counter() - t0
+    split["rest"] = wall - sum(split.values())
+    split["wall"] = wall
+    return u, trajs[0], split
 
 
 def phase_hmc_smeared(gen) -> dict:
@@ -416,20 +546,20 @@ def phase_hmc_smeared(gen) -> dict:
     reset_counts()                         # count the main path only
     u, trajs = run_trajectories(th, lat, gen, u, 2, "hmc_smeared")
     launches = read_counts()
-    with split_timer(th) as split:
-        t0 = time.perf_counter()
-        u, split_traj = run_trajectories(th, lat, gen, u, 1,
-                                         "hmc_smeared split")
-        wall = time.perf_counter() - t0
-    split["rest"] = wall - sum(split.values())
-    split["wall"] = wall
+    from qex_tpu_torch.mcmc import md
+    from qex_tpu_torch.physics import stag_solve
+    u, split_traj, split = split_run(
+        th, lat, gen, u, [("smear_forward", th, "_smear"),
+                          ("smear_pullback", md, "_pullback"),
+                          ("solves", stag_solve, "solve_ee")],
+        "hmc_smeared split", "stag8_dslash", 2)
     res = {"phase": "hmc_smeared", "dims": list(lat.dims),
            "smear": "nHYP(0.4, 0.5, 0.5)", "plaquette_start": plaq0,
            "trajectories": trajs,
            "seconds_per_traj_median": statistics.median(
                r["seconds"] for r in trajs),
            "peak_mem_gib": max(r["peak_mem_gib"] for r in trajs),
-           "kernel_launches": launches, "split_trajectory": split_traj[0],
+           "kernel_launches": launches, "split_trajectory": split_traj,
            "split_seconds": split}
     emit(res)
     return res
@@ -496,11 +626,15 @@ def phase_app() -> dict:
     return res
 
 
-def _ab(gen, tag: str, smear=None, sloppy: bool = False,
-        start: float = 0.7) -> dict:
+def _ab(gen, tag: str, theory, start: float = 0.7,
+        needed: tuple = ("stag8_dslash",)) -> dict:
+    """One 8^4 trajectory of ``theory(lat)`` with identical injected
+    draws, through the kernels on the card and through the plain
+    operators on the host; raises past the link and dH gates or if a
+    kernel of ``needed`` never launched."""
     from qex_tpu_torch.lattice import Lattice
     lat = Lattice((8, 8, 8, 8))
-    th = config4_theory(lat, smear=smear, sloppy=sloppy)
+    th = theory(lat)
     u = random_links(lat, gen, scale=start)
     p = th.draw_momenta(gen, u)
     xis = th.draw_noise(gen, u)
@@ -531,7 +665,6 @@ def _ab(gen, tag: str, smear=None, sloppy: bool = False,
            "kernel_launches": launches, "seconds_kernel": secs_k,
            "seconds_plain_host": secs_p}
     emit(res)
-    needed = ["stag8_dslash"] + (["stag8_dslash_bf16"] if sloppy else [])
     for k in needed:
         if launches[k] <= 0:
             raise AssertionError(f"{tag}: the kernel run never launched {k}")
@@ -539,6 +672,132 @@ def _ab(gen, tag: str, smear=None, sloppy: bool = False,
         raise AssertionError(f"{tag}: link deviation {link_dev}")
     if not ddh <= TOL_AB_DH_REL_H * abs(h_k):
         raise AssertionError(f"{tag}: |dH_kernel - dH_plain| = {ddh}")
+    return res
+
+
+def phase_hisq_solve(gen) -> dict:
+    """BASELINE config 5's solve at 32^3x64 (bench_configs.py CONFIG7):
+    fattening, the 4-mass multishift on B2 with each mass's true
+    residual by the kernel's d2ee, the f32 and sloppy single-mass solves
+    at m=0.05, and B2/B2b against their twins and timed at this volume."""
+    import dataclasses
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.ops import linalg
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.physics import stag_hmc
+    from qex_tpu_torch.physics import staggered as st
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice((32, 32, 32, 64))
+    torch.cuda.reset_peak_memory_stats()
+    u = random_links(lat, gen)
+    links, fat_s = timed_once_s(lambda: hisq_links(lat, u))
+    X, Y, Z, T = lat.dims
+    b = torch.randn((3, X, Y, Z, T // 2), dtype=torch.complex64,
+                    generator=gen, device=gen.device)
+    masses = (0.05, 0.1, 0.2, 0.4)
+    ferm = stag_hmc.HisqFermion(lat, masses[0], params=SolverParams(
+        r2req=1e-10, maxits=2000))
+    p16 = sh.new_hisq16(st.new_stag3_eo(lat, *links))
+    bf = sf.to_fast(b, lat)
+    b2 = float(linalg.norm2(bf, torch.float64))
+
+    def true_r2(x, m):          # with the kernel's operator
+        r = sh.d2ee_hisq16(p16, sf.to_fast(x, lat), m) - bf
+        return float(linalg.norm2(r, torch.float64)) / b2
+
+    res = {"phase": "hisq_solve", "dims": list(lat.dims),
+           "fattening_s": fat_s}
+    torch.cuda.synchronize()
+    reset_counts()                         # count the main path only
+    (xs, stats), secs = timed_once_s(
+        lambda: ferm.solve_multi(u, b, masses, links=links))
+    counts = read_counts()
+    res["multishift"] = {
+        "masses": list(masses), "r2req": ferm.params.r2req,
+        "iterations": stats.iterations, "solver_r2": stats.r2,
+        "seconds": secs, "seconds_per_iteration": secs / stats.iterations,
+        "true_rel_r2": [true_r2(x, m) for x, m in zip(xs, masses)],
+        "kernel_launches": counts}
+    del xs
+    main_counts = dict(counts)
+    for route, sloppy in (("f32", False), ("sloppy", True)):
+        f = dataclasses.replace(ferm, params=SolverParams(
+            r2req=1e-10, maxits=2000, restarts=5, sloppy=sloppy))
+        reset_counts()
+        (x, st_), secs = timed_once_s(lambda: f.solve_ee(u, b,
+                                                         links=links))
+        counts = read_counts()
+        rec = {"m": masses[0], "r2req": 1e-10, "iterations": st_.iterations,
+               "solver_r2": st_.r2, "true_rel_r2": true_r2(x, masses[0]),
+               "seconds": secs, "kernel_launches": counts}
+        if sloppy:
+            rec["inner_iterations"] = counts["hisq16_dslash_bf16"] // 2
+            rec["true_residuals"] = counts["hisq16_dslash"] // 2
+        res[f"solve_{route}"] = rec
+        for k, v in counts.items():
+            main_counts[k] += v
+    res["kernel_launches"] = main_counts
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    x = fast_vector(lat, gen)
+    bw = stream_bandwidth_gbs()
+    for name, ldt in (("hisq16_dslash", torch.float32),
+                      ("hisq16_dslash_bf16", torch.bfloat16)):
+        op = p16 if ldt == torch.float32 else sh.new_hisq16(
+            st.new_stag3_eo(lat, *links), links_dtype=ldt)
+        rec = compare_hop(name, op, x)
+        rec.update(time_hop(name, op, x, lat.volume // 2))
+        add_stream_share(rec, bw)
+        res[name] = rec
+    emit(res)
+    for i, m in enumerate(masses):
+        if not res["multishift"]["true_rel_r2"][i] <= TOL_MULTI:
+            raise AssertionError(f"hisq_solve: mass {m} true residual "
+                                 f"{res['multishift']['true_rel_r2'][i]}")
+    for route in ("f32", "sloppy"):
+        if not res[f"solve_{route}"]["true_rel_r2"] <= TOL_RES:
+            raise AssertionError(f"hisq_solve {route}: true residual "
+                                 f"{res[f'solve_{route}']['true_rel_r2']}")
+    for k in ("hisq16_dslash", "hisq16_dslash_bf16"):
+        if main_counts[k] <= 0:
+            raise AssertionError(f"hisq_solve: {k} never launched")
+    return res
+
+
+def phase_hmc_hisq(gen) -> dict:
+    """Two HISQ trajectories at 24^4 from a random start, expm(0.3 tah)
+    (see HISQ_START), the second
+    split into fattening forward (fat7.hisq_links and its forward-only
+    twin), fattening pullback (the rest of each force evaluation: the
+    backward pass through the two fat7 levels, the small d2ee3 backward
+    and the TAH projection), solves and the rest."""
+    from qex_tpu_torch.gauge import fat7, loops
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.mcmc import theory as theory_mod
+    from qex_tpu_torch.physics import stag_hmc
+    lat = Lattice((24, 24, 24, 24))
+    th = hisq_theory(lat)
+    u = random_links(lat, gen, scale=HISQ_START)
+    plaq0 = float(loops.plaquette(lat, u))
+    torch.cuda.synchronize()
+    reset_counts()                         # count the main path only
+    u, trajs = run_trajectories(th, lat, gen, u, 1, "hmc_hisq",
+                                "hisq16_dslash")
+    u, split_traj, split = split_run(
+        th, lat, gen, u,
+        [("fattening_forward", fat7, "hisq_links"),
+         ("fattening_forward", fat7, "hisq_links_lowmem"),
+         ("fattening_pullback", theory_mod, "force_from_action"),
+         ("solves", stag_hmc.HisqFermion, "_solve_links")],
+        "hmc_hisq split", "hisq16_dslash", 1)
+    launches = read_counts()
+    trajs.append(split_traj)
+    res = {"phase": "hmc_hisq", "dims": list(lat.dims),
+           "plaquette_start": plaq0, "trajectories": trajs,
+           "seconds_per_traj": [r["seconds"] for r in trajs],
+           "peak_mem_gib": max(r["peak_mem_gib"] for r in trajs),
+           "kernel_launches": launches, "split_seconds": split}
+    emit(res)
     return res
 
 
@@ -571,9 +830,9 @@ def profiled(tag: str, fn) -> dict:
 
 
 def profile_main() -> int:
-    """``--profile``: one f32 and one sloppy solve and one smeared
-    config-4 trajectory at 24^4 under torch.profiler (not part of the
-    checked run)."""
+    """``--profile``: one f32 and one sloppy solve, one smeared config-4
+    trajectory and one HISQ trajectory at 24^4 under torch.profiler (not
+    part of the checked run)."""
     from qex_tpu_torch.gauge.smear import HypCoefs
     from qex_tpu_torch.lattice import Lattice
     from qex_tpu_torch.physics import stag_solve
@@ -585,7 +844,7 @@ def profile_main() -> int:
     u = random_links(lat, gen)
     s = st.new_stag_eo(lat, u)
     b = torch.randn(lat.vector_shape(), dtype=torch.complex64,
-                    generator=gen, device="cuda")
+                    generator=gen, device=gen.device)
     for route, sloppy in (("solve_f32", False), ("solve_sloppy", True)):
         params = SolverParams(r2req=1e-10, maxits=5000, restarts=5,
                               sloppy=sloppy)
@@ -594,6 +853,10 @@ def profile_main() -> int:
     th = config4_theory(lat, smear=HypCoefs(0.4, 0.5, 0.5))
     th.hmc_step(gen, u)                                   # warm-up
     profiled("hmc_smeared", lambda: th.hmc_step(gen, u))
+    th = hisq_theory(lat)
+    u = random_links(lat, gen, scale=HISQ_START)
+    th.hmc_step(gen, u)                                   # warm-up
+    profiled("hmc_hisq", lambda: th.hmc_step(gen, u))
     return 0
 
 
@@ -605,6 +868,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import qex_tpu_torch  # noqa: F401  (pins full-f32 arithmetic)
     from qex_tpu_torch.gauge.smear import HypCoefs
+    smeared_theory = functools.partial(
+        config4_theory, smear=HypCoefs(0.4, 0.5, 0.5), sloppy=True)
     if sys.argv[1:] == ["--profile"]:
         return profile_main()
 
@@ -614,24 +879,30 @@ def main() -> int:
     kern = phase_kernel(gen)
     phase_solve(gen)
     phase_hmc(gen)
-    _ab(gen, "ab")
+    _ab(gen, "ab", config4_theory)
     smeared = phase_hmc_smeared(gen)
     app = phase_app()
-    _ab(gen, "ab_smeared", smear=HypCoefs(0.4, 0.5, 0.5), sloppy=True,
-        start=AB_SMEARED_START)
+    _ab(gen, "ab_smeared", smeared_theory, start=AB_SMEARED_START,
+        needed=("stag8_dslash", "stag8_dslash_bf16"))
+    hsolve = phase_hisq_solve(gen)
+    hhmc = phase_hmc_hisq(gen)
+    _ab(gen, "ab_hisq", hisq_theory, start=HISQ_START,
+        needed=("hisq16_dslash",))
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(dev["smi"], flush=True)
+    # each kernel's main path: the smeared config-4 trajectories and the
+    # app for the 8-term kernels, config 5's solves and the HISQ
+    # trajectories for the 16-term ones
+    paths = {"stag8": (smeared, app), "hisq16": (hsolve, hhmc)}
     kernels = []
-    for name in ("stag8_dslash", "stag8_dslash_bf16"):
+    for name, (kind, _ldt, _c) in KERNELS.items():
         k = kern[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "qex_tpu_torch/csrc/stag8_dslash.cu",
+            "source": f"qex_tpu_torch/csrc/{SOURCES[kind]}",
             "replaces": "qex_tpu/physics/stag_pallas_hisq.py:166",
-            # this slice's main path: the smeared config-4 trajectories
-            # (float32 solves) and the app (sloppy solves)
-            "launches": (smeared["kernel_launches"][name]
-                         + app["kernel_launches"][name]),
+            "launches": sum(ph["kernel_launches"][name]
+                            for ph in paths[kind]),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_us": k["bound_ms"] * 1e3, "bound_by": k["bound_by"],

@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source under ``csrc/`` exposes a plain C entry point.  At
+Each kernel source under ``csrc/`` exposes plain C entry points.  At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/qex_tpu_torch/`` at the repository root (named by
 a hash of source and flags, so an edited source rebuilds) and bound with
@@ -37,27 +37,48 @@ def _nvcc() -> str:
     return path
 
 
+def _target(source: str) -> tuple[Path, Path]:
+    """(source path, shared library path named by its content hash)."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+
+
+def build(sources: list[str]) -> None:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together; raises if any build fails."""
+    jobs = []
+    for source in sources:
+        src, so = _target(source)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((source, src, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for source, src, so, tmp, proc, t0 in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n"
+                          f"{stdout}{stderr}")
+            continue
+        os.replace(tmp, so)
+        BUILD_LOG[source] = {"seconds": time.perf_counter() - t0,
+                             "ptxas": stderr.strip()}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<source>``."""
     lib = _LIBS.get(source)
     if lib is not None:
         return lib
-    src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) on {src}:\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-        BUILD_LOG[source] = {"seconds": time.perf_counter() - t0,
-                             "ptxas": res.stderr.strip()}
-    lib = ctypes.CDLL(str(so))
+    build([source])
+    lib = ctypes.CDLL(str(_target(source)[1]))
     _LIBS[source] = lib
     return lib

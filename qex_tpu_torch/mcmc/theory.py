@@ -47,8 +47,9 @@ class GaugeActionSpec:
 
 @dataclasses.dataclass(frozen=True)
 class FermionSpec:
-    """One staggered matter field: ``kind`` is "fermion" or "boson"
-    ("rooted" and "hisq", and Hasenbusch ``hmasses``, are not ported)."""
+    """One staggered matter field: ``kind`` is "fermion", "boson" or
+    "hisq" (HISQ does its own fat7 + naik smearing, so its ``smeared``
+    is ignored; "rooted" and Hasenbusch ``hmasses`` are not ported)."""
 
     kind: str
     mass: float
@@ -147,10 +148,14 @@ class LatticeFieldTheory:
             elif spec.kind == "boson":
                 base = stag_hmc.StagBoson(lat, spec.mass, self.bc,
                                           self.solver_params)
-            elif spec.kind in ("rooted", "hisq"):
+            elif spec.kind == "hisq":
+                spec = dataclasses.replace(spec, smeared=False)
+                base = stag_hmc.HisqFermion(
+                    lat, spec.mass, bc=self.bc, params=self.solver_params,
+                    force_params=self.force_solver_params)
+            elif spec.kind == "rooted":
                 raise NotImplementedError(
-                    f"matter kind {spec.kind!r} is not ported yet "
-                    "(ROADMAP A6, A7)")
+                    "matter kind 'rooted' is not ported yet (ROADMAP A6)")
             else:
                 raise ValueError(f"unknown matter kind {spec.kind!r}")
             name = f"{spec.kind}{i}_m{spec.mass}"

@@ -1,5 +1,6 @@
-"""8-term staggered hop with pre-shifted links, and its CUDA kernel
-(port of the 8-term mode of ``qex_tpu.physics.stag_pallas_hisq``).
+"""Staggered hops with pre-shifted links, and their CUDA kernels (port
+of ``qex_tpu.physics.stag_pallas_hisq``: the 8-term plain staggered mode
+and the 16-term fat + naik (HISQ) mode).
 
 :func:`new_stag8` builds, per output parity, the eight link matrices
 of the hopping term at the output site, +-1/2 folded in:
@@ -13,11 +14,19 @@ applies it to a complex fast-layout vector ``(3, Th, Z, Y*X)``: a CUDA
 tensor goes through the hand-written kernel ``csrc/stag8_dslash.cu``
 (and nothing else), a CPU tensor through :func:`dslash_stag8_plain`.
 
+:func:`new_hisq16` builds the sixteen terms of the fat + naik hop the
+same way, term t = kind*4 + mu with kind 0 = fat forward
+(+1/2 fat_mu(x)), 1 = fat backward (-1/2 fat_mu(x-mu)^dag), 2 = long
+forward (+1/2 long_mu(x), a 3-hop) and 3 = long backward
+(-1/2 long_mu(x-3mu)^dag), in ``(16, 2, 3, 3, Th, Z, Y*X)`` as
+``new_pallas_hisq``; :func:`dslash_hisq16` applies it through
+``csrc/hisq16_dslash.cu`` (CUDA) or :func:`dslash_hisq16_plain` (CPU).
+
 Links may be float32 (the true operator) or bfloat16 (the inner operator
 of the sloppy CG, ``links_dtype=torch.bfloat16``: the split planes are
 rounded to nearest even, as the JAX ``_split(l, bfloat16)``).  The
-kernel widens each bf16 link element to float32 and computes in float32,
-and the plain twin casts the links up to x's precision, so both compute
+kernels widen each bf16 link element to float32 and compute in float32,
+and the plain twins cast the links up to x's precision, so both compute
 the same operator on the same rounded links.
 """
 
@@ -58,22 +67,32 @@ def new_stag8(s, links_dtype: torch.dtype = torch.float32) -> Stag8EO:
     return Stag8EO(s.lat, build(s.g_e, s.g_o, 0), build(s.g_o, s.g_e, 1))
 
 
+def _hop_plain(lat: Lattice, l_split: torch.Tensor, x: torch.Tensor,
+               parity_out: int, x_fuse: torch.Tensor | None, m2: float
+               ) -> torch.Tensor:
+    """sum_t L_t psi(x + d_t) over the 8 or 16 terms of ``l_split``
+    (term t = kind*4 + mu: kinds 0/2 forward, 1/3 backward, 0/1 one hop,
+    2/3 three hops), in x's precision; with ``x_fuse`` it returns
+    ``m2 * x_fuse - sum``."""
+    links = _join(l_split.transpose(0, 1).to(x.real.dtype))
+    out = None
+    for t in range(links.shape[0]):
+        kind, mu = divmod(t, 4)
+        sign, dist = (+1 if kind % 2 == 0 else -1), (1 if kind < 2 else 3)
+        term = (links[t] * sf.shift_fast(x, mu, sign, parity_out, lat,
+                                         dist)[None]).sum(1)
+        out = term if out is None else out + term
+    return out if x_fuse is None else m2 * x_fuse - out
+
+
 def dslash_stag8_plain(p8: Stag8EO, x: torch.Tensor, parity_out: int,
                        x_fuse: torch.Tensor | None = None, m2: float = 0.0
                        ) -> torch.Tensor:
     """Plain-torch twin of the kernel: the fast-layout formula on the
     pre-shifted links, in x's precision.  With ``x_fuse`` it returns
     ``m2 * x_fuse - sum_t L_t psi`` (the fused d2ee epilogue)."""
-    lat = p8.lat
-    links = _join((p8.l_e if parity_out == 0 else p8.l_o)
-                  .transpose(0, 1).to(x.real.dtype))
-    out = None
-    for t in range(8):
-        mu, sign = t % 4, (+1 if t < 4 else -1)
-        term = (links[t] * sf.shift_fast(x, mu, sign, parity_out,
-                                         lat)[None]).sum(1)
-        out = term if out is None else out + term
-    return out if x_fuse is None else m2 * x_fuse - out
+    return _hop_plain(p8.lat, p8.l_e if parity_out == 0 else p8.l_o, x,
+                      parity_out, x_fuse, m2)
 
 
 def _check_operand(name: str, v: torch.Tensor, shape, device) -> None:
@@ -88,15 +107,44 @@ def _check_operand(name: str, v: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _lib(links_dtype: torch.dtype):
-    lib = _native.load("stag8_dslash.cu")
-    fn = (lib.qex_stag8_dslash_bf16 if links_dtype == torch.bfloat16
-          else lib.qex_stag8_dslash)
+def _launch(kind: str, links: torch.Tensor, lat: Lattice,
+            x: torch.Tensor, parity_out: int, x_fuse: torch.Tensor | None,
+            m2: float) -> torch.Tensor:
+    """Check the operands and launch ``csrc/<kind>_dslash.cu`` (its
+    float32- or bfloat16-link entry point) on x's CUDA device; raises on
+    operands the kernel does not take and on a failed launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no {kind} kernel for device {x.device}")
+    nterms = 8 if kind == "stag8" else 16
+    X, Y, Z, T = lat.dims
+    shape = (3, T // 2, Z, Y * X)
+    if (links.device != x.device
+            or links.dtype not in (torch.float32, torch.bfloat16)
+            or tuple(links.shape) != (nterms, 2, 3, 3) + shape[1:]
+            or not links.is_contiguous()):
+        raise ValueError(f"{kind} links must be contiguous float32 or "
+                         f"bfloat16 ({nterms}, 2, 3, 3, {shape[1:]}) on "
+                         f"{x.device}")
+    _check_operand("x", x, shape, x.device)
+    if x_fuse is not None:
+        _check_operand("x_fuse", x_fuse, shape, x.device)
+    lib = _native.load(f"{kind}_dslash.cu")
+    fn = getattr(lib, f"qex_{kind}_dslash"
+                 + ("_bf16" if links.dtype == torch.bfloat16 else ""))
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(links.data_ptr(), x.data_ptr(),
+                 None if x_fuse is None else x_fuse.data_ptr(),
+                 out.data_ptr(), float(m2), X, Y, Z, T // 2,
+                 int(parity_out), stream)
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err}")
+    return out
 
 
 def dslash_stag8(p8: Stag8EO, x: torch.Tensor, parity_out: int,
@@ -113,34 +161,12 @@ def dslash_stag8(p8: Stag8EO, x: torch.Tensor, parity_out: int,
     """
     if x.device.type == "cpu":
         return dslash_stag8_plain(p8, x, parity_out, x_fuse, m2)
-    if x.device.type != "cuda":
-        raise ValueError(f"no stag8 kernel for device {x.device}")
     links = p8.l_e if parity_out == 0 else p8.l_o
-    X, Y, Z, T = p8.lat.dims
-    shape = (3, T // 2, Z, Y * X)
-    if (links.device != x.device
-            or links.dtype not in (torch.float32, torch.bfloat16)
-            or tuple(links.shape) != (8, 2, 3, 3) + shape[1:]
-            or not links.is_contiguous()):
-        raise ValueError("stag8 links must be contiguous float32 or "
-                         f"bfloat16 (8, 2, 3, 3, {shape[1:]}) on {x.device}")
-    _check_operand("x", x, shape, x.device)
-    if x_fuse is not None:
-        _check_operand("x_fuse", x_fuse, shape, x.device)
-    fn = _lib(links.dtype)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(links.data_ptr(), x.data_ptr(),
-                 None if x_fuse is None else x_fuse.data_ptr(),
-                 out.data_ptr(), float(m2), X, Y, Z, T // 2,
-                 int(parity_out), stream)
+    out = _launch("stag8", links, p8.lat, x, parity_out, x_fuse, m2)
     if links.dtype == torch.bfloat16:
         dslash_stag8.launches_bf16 += 1
     else:
         dslash_stag8.launches += 1
-    if err != 0:
-        raise RuntimeError(f"stag8 kernel launch failed: CUDA error {err}")
     return out
 
 
@@ -160,3 +186,87 @@ def d2dd_stag8(p8: Stag8EO, x: torch.Tensor, parity: int = 0
     """Mass-free normal operator -D_po,ps D_ps,po x."""
     t = dslash_stag8(p8, x, 1 - parity)
     return dslash_stag8(p8, t, parity, x_fuse=x, m2=0.0)
+
+
+# --- 16-term fat + naik (HISQ) hop -------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Hisq16EO:
+    """Kernel-ready fat + naik operator: term-major pre-shifted links
+    ``l_e``/``l_o``, each (16, 2, 3, 3, Th, Z, Y*X)."""
+
+    lat: Lattice
+    l_e: torch.Tensor
+    l_o: torch.Tensor
+
+
+def new_hisq16(s, links_dtype: torch.dtype = torch.float32) -> Hisq16EO:
+    """From a staggered.Staggered3EO or stag_fast.FastStag3EO."""
+    if not isinstance(s, sf.FastStag3EO):
+        s = sf.new_fast3(s)
+    if s.lat.dims[0] < 3:
+        raise ValueError("the naik x hop needs an x extent of at least 3")
+
+    def build(gf_out, gf_src, gl_out, gl_src, parity_out):
+        def back(g, dist):
+            return [sf.shift_fast(g[mu].transpose(0, 1).conj(), mu, -1,
+                                  parity_out, s.lat, dist)
+                    for mu in range(4)]
+        l = torch.cat([0.5 * gf_out, -0.5 * torch.stack(back(gf_src, 1)),
+                       0.5 * gl_out, -0.5 * torch.stack(back(gl_src, 3))])
+        return _split(l, links_dtype).transpose(0, 1).contiguous()
+
+    return Hisq16EO(s.lat, build(s.gf_e, s.gf_o, s.gl_e, s.gl_o, 0),
+                    build(s.gf_o, s.gf_e, s.gl_o, s.gl_e, 1))
+
+
+def dslash_hisq16_plain(p16: Hisq16EO, x: torch.Tensor, parity_out: int,
+                        x_fuse: torch.Tensor | None = None, m2: float = 0.0
+                        ) -> torch.Tensor:
+    """Plain-torch twin of the 16-term kernel (fused d2ee epilogue with
+    ``x_fuse``, as :func:`dslash_stag8_plain`)."""
+    return _hop_plain(p16.lat, p16.l_e if parity_out == 0 else p16.l_o, x,
+                      parity_out, x_fuse, m2)
+
+
+def dslash_hisq16(p16: Hisq16EO, x: torch.Tensor, parity_out: int,
+                  x_fuse: torch.Tensor | None = None, m2: float = 0.0
+                  ) -> torch.Tensor:
+    """Apply the 16-term fat + naik hop onto ``parity_out``; x is a
+    complex fast-layout vector (3, Th, Z, Y*X) on the source parity.
+
+    CPU tensors take :func:`dslash_hisq16_plain`.  CUDA tensors launch
+    the kernel ``csrc/hisq16_dslash.cu`` (complex64 vectors, float32 or
+    bfloat16 links, all contiguous on one device) or raise;
+    ``dslash_hisq16.launches`` counts launches of the float32-link
+    kernel (B2) and ``dslash_hisq16.launches_bf16`` those of the
+    bfloat16-link kernel (B2b).
+    """
+    if x.device.type == "cpu":
+        return dslash_hisq16_plain(p16, x, parity_out, x_fuse, m2)
+    links = p16.l_e if parity_out == 0 else p16.l_o
+    out = _launch("hisq16", links, p16.lat, x, parity_out, x_fuse, m2)
+    if links.dtype == torch.bfloat16:
+        dslash_hisq16.launches_bf16 += 1
+    else:
+        dslash_hisq16.launches += 1
+    return out
+
+
+dslash_hisq16.launches = 0
+dslash_hisq16.launches_bf16 = 0
+
+
+def d2ee_hisq16(p16: Hisq16EO, x_e: torch.Tensor, m: float
+                ) -> torch.Tensor:
+    """A3 x = (m^2 - D3_eo D3_oe) x with the epilogue fused into the
+    second hop."""
+    t = dslash_hisq16(p16, x_e, 1)
+    return dslash_hisq16(p16, t, 0, x_fuse=x_e, m2=m * m)
+
+
+def d2dd_hisq16(p16: Hisq16EO, x: torch.Tensor, parity: int = 0
+                ) -> torch.Tensor:
+    """Mass-free fat + naik normal operator -D3_po,ps D3_ps,po x."""
+    t = dslash_hisq16(p16, x, 1 - parity)
+    return dslash_hisq16(p16, t, parity, x_fuse=x, m2=0.0)

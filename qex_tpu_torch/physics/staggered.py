@@ -1,5 +1,6 @@
 """Staggered (Kogut-Susskind) Dirac operator, canonical eo layout (port
-of ``qex_tpu.physics.staggered``, plain 1-hop operator only).
+of ``qex_tpu.physics.staggered``: the plain 1-hop operator and the fat +
+naik (HISQ) operator with its full-lattice oracle).
 
 Staggered phases and boundary signs are folded into the links once
 (:func:`phase_links`), so the stencil is phase-free:
@@ -21,6 +22,7 @@ import torch
 
 from ..lattice import Lattice
 from ..ops import eo, linalg
+from ..ops.shifts import shift
 
 
 def _coord(lat: Lattice, mu: int, device) -> torch.Tensor:
@@ -122,6 +124,83 @@ def reconstruct_odd(s: StaggeredEO, x_e: torch.Tensor, b_o: torch.Tensor,
                     m: float) -> torch.Tensor:
     """Odd part of the solution of D x = b: x_o = (b_o - D_oe x_e) / m."""
     return (b_o - dslash_eo(s, x_e, parity_out=1)) / m
+
+
+@dataclasses.dataclass(frozen=True)
+class Staggered3EO:
+    """Even-odd packed fat + naik operator: fat (1-hop) links ``gf_*``
+    and long (3-hop) links ``gl_*``, built from
+    ``gauge.fat7.hisq_links`` of phased links (phases and boundary signs
+    are folded in before fattening)."""
+
+    lat: Lattice
+    gf_e: torch.Tensor
+    gf_o: torch.Tensor
+    gl_e: torch.Tensor
+    gl_o: torch.Tensor
+
+
+def new_stag3_eo(lat: Lattice, fat: torch.Tensor, long: torch.Tensor
+                 ) -> Staggered3EO:
+    """Pack pre-phased fat and long links into the eo operator."""
+    fe, fo = eo.pack(fat, lat.nd)
+    le, lo = eo.pack(long, lat.nd)
+    return Staggered3EO(lat, fe, fo, le, lo)
+
+
+def dslash3_eo(s: Staggered3EO, x_src: torch.Tensor, parity_out: int
+               ) -> torch.Tensor:
+    """Fat (1-hop) + naik (3-hop) hopping term onto ``parity_out``; both
+    distances are odd, so both connect the opposite parity.  The naik
+    coefficient is inside the long links."""
+    nd = s.lat.nd
+    gf_out = s.gf_e if parity_out == 0 else s.gf_o
+    gf_src = s.gf_o if parity_out == 0 else s.gf_e
+    gl_out = s.gl_e if parity_out == 0 else s.gl_o
+    gl_src = s.gl_o if parity_out == 0 else s.gl_e
+    out = None
+    for mu in range(nd):
+        fwd = linalg.mv(gf_out[mu], eo.shift_eo(x_src, mu, +1, parity_out,
+                                                nd))
+        bwd = eo.shift_eo(linalg.mv_an(gf_src[mu], x_src), mu, -1,
+                          parity_out, nd)
+        term = fwd - bwd
+        fwd3 = linalg.mv(gl_out[mu], eo.shift_eo(x_src, mu, +1, parity_out,
+                                                 nd, dist=3))
+        bwd3 = eo.shift_eo(linalg.mv_an(gl_src[mu], x_src), mu, -1,
+                           parity_out, nd, dist=3)
+        term = term + fwd3 - bwd3
+        out = term if out is None else out + term
+    return 0.5 * out
+
+
+def dslash3_full(lat: Lattice, fat: torch.Tensor, long: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Full-lattice fat + naik hopping term (correctness oracle)."""
+    nd = lat.nd
+    out = None
+    for mu in range(nd):
+        term = (linalg.mv(fat[mu], shift(x, mu, +1, nd))
+                - shift(linalg.mv_an(fat[mu], x), mu, -1, nd))
+        term = term + (linalg.mv(long[mu], shift(x, mu, +1, nd, dist=3))
+                       - shift(linalg.mv_an(long[mu], x), mu, -1, nd,
+                               dist=3))
+        out = term if out is None else out + term
+    return 0.5 * out
+
+
+def d2ee3(s: Staggered3EO, x_e: torch.Tensor, m: float) -> torch.Tensor:
+    """Even-odd normal operator of the fat + naik Dslash."""
+    t = dslash3_eo(s, x_e, parity_out=1)
+    y = dslash3_eo(s, t, parity_out=0)
+    return (m * m) * x_e - y
+
+
+def d2dd3(s: Staggered3EO, x: torch.Tensor, parity: int = 0
+          ) -> torch.Tensor:
+    """Mass-free fat + naik normal operator (multishift base)."""
+    t = dslash3_eo(s, x, parity_out=1 - parity)
+    return -dslash3_eo(s, t, parity_out=parity)
 
 
 def dslash_flops_per_site(nd: int = 4, nc: int = 3) -> int:

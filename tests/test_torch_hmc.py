@@ -196,7 +196,8 @@ def test_unported_theory_options_raise(slice_refs):
     with pytest.raises(TypeError, match="smear"):
         convert.theory_from_reference(**dict(args, smear=object()))
     for spec in (FermionSpec("fermion", 0.2, hmasses=(0.4,)),
-                 FermionSpec("rooted", 0.2), FermionSpec("hisq", 0.2)):
+                 FermionSpec("rooted", 0.2),
+                 FermionSpec("hisq", 0.2, hmasses=(0.4,))):
         with pytest.raises(NotImplementedError):
             LatticeFieldTheory(convert.Lattice(DIMS),
                                convert._gauge_spec(args["gauge"]),

@@ -1,13 +1,16 @@
-"""The stag8 CUDA kernels (f32 links, and bf16 links: kernel B1b)
-against their plain torch version, and a sloppy solve, on a card.
+"""The CUDA kernels against their plain torch versions on a card: the
+8-term stag8 hop (f32 links, B1; bf16 links, B1b) with a sloppy solve,
+and the 16-term HISQ hop (f32 links, B2; bf16 links, B2b) with a
+multi-mass solve.
 
 Imports only torch and qex_tpu_torch, so it runs where jax is absent:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu \
         tests/test_torch_kernels_gpu.py
 
-Without a CUDA device every test here skips (the kernel has no CPU
-mode; its plain twin is covered by tests/test_torch_staggered.py).
+Without a CUDA device every test here skips (the kernels have no CPU
+mode; their plain twins are covered by tests/test_torch_staggered.py
+and tests/test_torch_hisq.py).
 """
 
 import pytest
@@ -127,3 +130,88 @@ def test_sloppy_solve_on_card(cuda_device):
     s64 = st.new_stag_eo(lat, u.to(torch.complex128))
     r = st.d2ee(s64, x.to(torch.complex128), 0.1) - b.to(torch.complex128)
     assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-9
+
+
+def _hisq16(lat, gen, links_dtype=torch.float32):
+    """16-term links of expm(0.7 tah) links phased and HISQ-smeared as
+    HisqFermion._links does."""
+    from qex_tpu_torch.gauge import fat7
+    u = torch.stack([linalg.expm(0.7 * group.random_tah(
+        gen, lat.dims, 3, torch.complex64)) for _ in range(4)])
+    fl, ll = fat7.hisq_links_lowmem(lat, st.phase_links(lat, u))
+    return sh.new_hisq16(st.new_stag3_eo(lat, fl, ll),
+                         links_dtype=links_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("links", ["f32", "bf16"])
+@pytest.mark.parametrize("dims", [(4, 4, 4, 4), (8, 4, 4, 8),
+                                  (24, 24, 24, 24)])
+def test_hisq16_kernel_matches_plain_on_card(cuda_device, dims, links):
+    """Kernels B2 (f32 links) and B2b (bf16 links) against the plain
+    16-term hop on the same links: both parities and the fused d2ee and
+    d2dd epilogues.  4^4 holds Th = 2 and the distance-3 wraps at
+    extent 4."""
+    lat = Lattice(dims)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    ldt = torch.float32 if links == "f32" else torch.bfloat16
+    p16 = _hisq16(lat, gen, ldt)
+    assert p16.l_e.dtype == ldt
+    x = torch.randn((3, dims[3] // 2, dims[2], dims[1] * dims[0]),
+                    dtype=torch.complex64, generator=gen, device=cuda_device)
+    counter = "launches" if links == "f32" else "launches_bf16"
+    before = getattr(sh.dslash_hisq16, counter)
+    for parity in (0, 1):
+        got = sh.dslash_hisq16(p16, x, parity)
+        torch.cuda.synchronize()
+        assert _rel2(got, sh.dslash_hisq16_plain(p16, x, parity)) < TOL
+    hop = lambda v, par: sh.dslash_hisq16_plain(p16, v, par)
+    got = sh.d2ee_hisq16(p16, x, 0.3)
+    torch.cuda.synchronize()
+    assert _rel2(got, 0.09 * x - hop(hop(x, 1), 0)) < TOL
+    got = sh.d2dd_hisq16(p16, x, 1)
+    torch.cuda.synchronize()
+    assert _rel2(got, -hop(hop(x, 0), 1)) < TOL
+    assert getattr(sh.dslash_hisq16, counter) == before + 6
+
+
+@pytest.mark.gpu
+def test_hisq16_kernel_rejects_bad_operands(cuda_device):
+    lat = Lattice((4, 4, 4, 4))
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    p16 = _hisq16(lat, gen)
+    x = torch.zeros((3, 2, 4, 16), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(TypeError):
+        sh.dslash_hisq16(p16, x.to(torch.complex128), 0)
+    with pytest.raises(ValueError):
+        sh.dslash_hisq16(p16, x[:, :1], 0)
+    p8 = sh.new_stag8(st.new_stag_eo(lat, torch.eye(
+        3, dtype=torch.complex64, device=cuda_device).reshape(
+        1, 3, 3, 1, 1, 1, 1).expand(lat.gauge_shape()).contiguous()))
+    with pytest.raises(ValueError):          # 8-term links, 16-term hop
+        sh.dslash_hisq16(sh.Hisq16EO(lat, p8.l_e, p8.l_o), x, 0)
+
+
+@pytest.mark.gpu
+def test_hisq_multishift_on_card(cuda_device):
+    """The multi-mass solve on kernel B2 reaches each mass's requested
+    true residual (within the 100x that an unrestarted float32
+    multishift allows)."""
+    from qex_tpu_torch.physics import stag_hmc
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice((8, 8, 8, 8))
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    u = torch.stack([linalg.expm(0.7 * group.random_tah(
+        gen, lat.dims, 3, torch.complex64)) for _ in range(4)])
+    ferm = stag_hmc.HisqFermion(lat, 0.1, params=SolverParams(
+        r2req=1e-10, maxits=2000))
+    b = torch.randn((3, 8, 8, 8, 4), dtype=torch.complex64, generator=gen,
+                    device=cuda_device)
+    before = sh.dslash_hisq16.launches
+    masses = (0.1, 0.2, 0.4)
+    xs, stats = ferm.solve_multi(u, b, masses)
+    assert sh.dslash_hisq16.launches == before + 2 * stats.iterations
+    s3 = st.new_stag3_eo(lat, *ferm._links(u))
+    for m, x in zip(masses, xs):
+        r = st.d2ee3(s3, x, m) - b
+        assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-8
