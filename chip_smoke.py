@@ -38,16 +38,27 @@ Phases, each printed as one JSON line:
      HISQ fermion m=0.05) at 24^4 from smoother links (see HISQ_START),
      the second split into fattening forward, fattening pullback, solves
      and the rest;
- 11. ab_hisq: phase 5 for the HISQ theory at 8^4 from those links.
+ 11. ab_hisq: phase 5 for the HISQ theory at 8^4 from those links;
+ 12. wilson_kernel: the Wilson hop kernel with float32 (B3) and bfloat16
+     links (B3b) against its plain twin, both parities, m_ee_w and
+     m_ee_dag_w, at 6x4x4x8, 4x4x8x8, 24^3x32 and 32^3x64, timed at the
+     last two (768 and 480 B/site, 1344 flop/site);
+ 13. wilson_solve: exp_wilson.py's eo CGNE solve at 24^3x32, m=0.1, bc
+     pppa, r2req 1e-12, float32 links and sloppy;
+ 14. wilson_mesons: the 12 point-source propagators of the measure app
+     through solve_eo at 24^3x32 and all nine Wilson meson channels;
+ 15. wilson_mg: exp_mg_ab.py's composition (m=0.005, bc pppp, r2req
+     1e-8) at 8^3x16 and 16^3x32: CGNE through B3 against the K-cycle
+     multigrid (setup, warm solve on the reused hierarchy, break-even).
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10) and read just after it.  Then the card line, the kernels summary and,
-last, the ok line.  Any failed check raises, so the script exits non-zero
+7, 9, 10, 13, 14, 15) and read just after it.  Then the card line, the
+kernels summary and, last, the ok line.  Any failed check raises, so the script exits non-zero
 and prints no ok line; without a CUDA device it exits non-zero at once.
 
 ``--profile`` instead runs a 24^4 f32 solve, a sloppy solve, one smeared
-config-4 trajectory and one HISQ trajectory under torch.profiler and
-prints each one's wall time, device kernel count, device-idle share and
-top operators.
+config-4 trajectory, one HISQ trajectory and a 24^3x32 Wilson eo solve
+under torch.profiler and prints each one's wall time, device kernel
+count, device-idle share and top operators.
 """
 
 from __future__ import annotations
@@ -107,19 +118,31 @@ TOL_MULTI = 1e-8
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # per output site: flops (the reference's models) and bytes (links,
-# spinor and output, each once) of the 8- and 16-term hops
-FLOPS_PER_SITE = {"stag8": 594, "hisq16": 1152}
+# spinor and output, each once) of the 8- and 16-term staggered hops and
+# the Wilson hop
+FLOPS_PER_SITE = {"stag8": 594, "hisq16": 1152, "wilson8": 1344}
 BYTES_PER_SITE = {("stag8", torch.float32): 624,
                   ("stag8", torch.bfloat16): 336,
                   ("hisq16", torch.float32): 1200,
-                  ("hisq16", torch.bfloat16): 624}
+                  ("hisq16", torch.bfloat16): 624,
+                  ("wilson8", torch.float32): 768,
+                  ("wilson8", torch.bfloat16): 480}
 KERNELS = {   # name: (hop kind, links dtype, launch counter)
     "stag8_dslash": ("stag8", torch.float32, "launches"),
     "stag8_dslash_bf16": ("stag8", torch.bfloat16, "launches_bf16"),
     "hisq16_dslash": ("hisq16", torch.float32, "launches"),
     "hisq16_dslash_bf16": ("hisq16", torch.bfloat16, "launches_bf16"),
+    "wilson8_hop": ("wilson8", torch.float32, "launches"),
+    "wilson8_hop_bf16": ("wilson8", torch.bfloat16, "launches_bf16"),
 }
-SOURCES = {"stag8": "stag8_dslash.cu", "hisq16": "hisq16_dslash.cu"}
+SOURCES = {"stag8": "stag8_dslash.cu", "hisq16": "hisq16_dslash.cu",
+           "wilson8": "wilson8_dslash.cu"}
+REPLACES = {"stag8": "qex_tpu/physics/stag_pallas_hisq.py:166",
+            "hisq16": "qex_tpu/physics/stag_pallas_hisq.py:166",
+            "wilson8": "qex_tpu/physics/wilson_pallas.py:167"}
+# Wilson solves (phases 13-14): true relative r^2 of D x = b, by the
+# plain operator in complex128; exp_wilson.py's r2req 1e-12 for phase 13
+TOL_WILSON = 1e-11
 # where the chip run keeps the app's checkpoints (gitignored)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
@@ -172,7 +195,9 @@ def random_links(lat, gen, dtype=torch.complex64, scale: float = 0.7):
 
 def _wrapper(kind: str):
     from qex_tpu_torch.physics import stag_hisq as sh
-    return sh.dslash_stag8 if kind == "stag8" else sh.dslash_hisq16
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    return {"stag8": sh.dslash_stag8, "hisq16": sh.dslash_hisq16,
+            "wilson8": wp.hop_w}[kind]
 
 
 def reset_counts() -> None:
@@ -801,6 +826,269 @@ def phase_hmc_hisq(gen) -> dict:
     return res
 
 
+def wilson_op(lat, u, m: float, bc: str = "pppa"):
+    """links dtype -> kernel-ready Wilson hop of links u (eo, mass m)."""
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    w = wl.new_wilson_eo(lat, u, m, bc)
+    return lambda ldt: wp.new_pallas_wilson(w, links_dtype=ldt)
+
+
+def compare_wilson(name: str, pw, x) -> dict:
+    """Kernel B3 / B3b against its plain twin on the same links: both
+    parities, m_ee_w (fused epilogue) and m_ee_dag_w; raises past
+    TOL_KERNEL."""
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    res, max_abs = {}, 0.0
+
+    def check(key, got, ref):
+        nonlocal max_abs
+        torch.cuda.synchronize()
+        res[key] = rel2(got, ref)
+        max_abs = max(max_abs, float((got - ref).abs().max()))
+
+    for parity in (0, 1):
+        check(f"rel2_parity{parity}", wp.hop_w(pw, x, parity),
+              wp.hop_w_plain(pw, x, parity))
+
+    def m_ee_plain(v):
+        return pw.a * v - wp.hop_w_plain(pw, wp.hop_w_plain(pw, v, 1),
+                                         0) / pw.a
+
+    check("rel2_m_ee", wp.m_ee_w(pw, x), m_ee_plain(x))
+    check("rel2_m_ee_dag", wp.m_ee_dag_w(pw, x),
+          wp._g5(m_ee_plain(wp._g5(x))))
+    res["max_abs_err"] = max_abs
+    for key in ("rel2_parity0", "rel2_parity1", "rel2_m_ee",
+                "rel2_m_ee_dag"):
+        if not res[key] <= TOL_KERNEL:
+            raise AssertionError(f"{name} at {tuple(x.shape)}: {key} "
+                                 f"{res[key]}")
+    return res
+
+
+def time_wilson(name: str, pw, x, sites: int) -> dict:
+    """Kernel, plain twin and m_ee_w times (CUDA events), GB/s by the
+    bytes model and the kernel's bound at the data-sheet peaks."""
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    _kind, ldt, _ = KERNELS[name]
+    nbytes = BYTES_PER_SITE[("wilson8", ldt)] * sites
+    flops = FLOPS_PER_SITE["wilson8"] * sites
+    k_ms = cuda_time_ms(lambda: wp.hop_w(pw, x, 0), reps=200)
+    p_ms = cuda_time_ms(lambda: wp.hop_w_plain(pw, x, 0), reps=5, rounds=3)
+    ee_ms = cuda_time_ms(lambda: wp.m_ee_w(pw, x), reps=100)
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    flops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return {"ms": k_ms, "plain_ms": p_ms, "m_ee_ms": ee_ms,
+            "gflops": flops / (k_ms * 1e-3) / 1e9,
+            "bytes": nbytes, "gbs": nbytes / (k_ms * 1e-3) / 1e9,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def phase_wilson_kernel(gen) -> dict:
+    """B3 and B3b against the plain twin at 6x4x4x8 (the JAX kernel
+    test's geometry), 4x4x8x8, 24^3x32 (exp_wilson.py) and 32^3x64, on
+    expm(0.7 tah) links; timed at the last two."""
+    from qex_tpu_torch import _native
+    from qex_tpu_torch.lattice import Lattice
+    out = {}
+    timed = ((24, 24, 24, 32), (32, 32, 32, 64))
+    for dims in ((6, 4, 4, 8), (4, 4, 8, 8)) + timed:
+        lat = Lattice(dims)
+        build = wilson_op(lat, random_links(lat, gen), 0.1)
+        X, Y, Z, T = lat.dims
+        x = torch.randn((4, 3, T // 2, Z, Y * X), dtype=torch.complex64,
+                        generator=gen, device=gen.device)
+        for name in ("wilson8_hop", "wilson8_hop_bf16"):
+            ldt = KERNELS[name][1]
+            pw = build(ldt)
+            rec = {"dims": list(dims), "links": str(ldt)}
+            rec.update(compare_wilson(name, pw, x))
+            if dims in timed:
+                rec.update(time_wilson(name, pw, x, lat.volume // 2))
+            out.setdefault(name, {})[dims_label(dims)] = rec
+            del pw
+        del build, x
+    bw = stream_bandwidth_gbs()
+    for recs in out.values():
+        for dims in timed:
+            add_stream_share(recs[dims_label(dims)], bw)
+    ptxas = [ln.strip() for ln in _native.BUILD_LOG.get(
+        SOURCES["wilson8"], {}).get("ptxas", "").splitlines()
+        if "registers" in ln or "spill" in ln]
+    emit({"phase": "wilson_kernel", "stream_gbs": bw, "ptxas": ptxas, **out})
+    res = {}
+    for name, recs in out.items():
+        res[name] = dict(recs["24x24x24x32"])
+        res[name]["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in recs.values())
+    return res
+
+
+def wilson_true_r2(lat, u, m: float, bc: str, x, b) -> float:
+    """|D x - b|^2 / |b|^2 with the plain operator in complex128."""
+    from qex_tpu_torch.physics import wilson as wl
+    d = wl.new_wilson(lat, u.to(torch.complex128), m, bc)
+    b64 = b.to(torch.complex128)
+    r = wl.wilson_d(d, x.to(torch.complex128)) - b64
+    return float((r.abs() ** 2).sum() / (b64.abs() ** 2).sum())
+
+
+def phase_wilson_solve(gen) -> dict:
+    """exp_wilson.py's solve through wilson.solve_eo's routing:
+    24^3x32, m=0.1, bc pppa, r2req 1e-12, maxits 1000, 3 restarts, on
+    seeded expm(0.7 tah) links (not Haar links: random_su is ROADMAP
+    A4), float32 links (B3) and sloppy (B3b inner iterations)."""
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice((24, 24, 24, 32))
+    m = 0.1
+    u = random_links(lat, gen)
+    b = torch.randn((4, 3) + lat.dims, dtype=torch.complex64, generator=gen,
+                    device=gen.device)
+    w = wl.new_wilson_eo(lat, u, m)
+    res = {"phase": "wilson_solve", "dims": list(lat.dims), "m": m}
+    total = dict.fromkeys(KERNELS, 0)
+    for route, sloppy in (("f32", False), ("sloppy", True)):
+        params = SolverParams(r2req=1e-12, maxits=1000, restarts=3,
+                              sloppy=sloppy)
+        torch.cuda.synchronize()
+        reset_counts()                     # count the main path only
+        (x, stats), secs = timed_once_s(lambda: wl.solve_eo(w, b, params))
+        counts = read_counts()
+        true = wilson_true_r2(lat, u, m, "pppa", x, b)
+        res[route] = {"r2req": params.r2req, "iterations": stats.iterations,
+                      "solver_r2": stats.r2, "true_rel_r2": true,
+                      "seconds": secs,
+                      "seconds_per_iteration": secs / stats.iterations,
+                      "kernel_launches": counts}
+        for k, v in counts.items():
+            total[k] += v
+        if not true <= TOL_WILSON:
+            raise AssertionError(f"wilson_solve {route}: true residual "
+                                 f"{true} > {TOL_WILSON}")
+        needed = ["wilson8_hop"] + (["wilson8_hop_bf16"] if sloppy else [])
+        for k in needed:
+            if counts[k] <= 0:
+                raise AssertionError(f"wilson_solve {route}: {k} never "
+                                     f"launched")
+    res["kernel_launches"] = total
+    emit(res)
+    return res
+
+
+def phase_wilson_mesons(gen) -> dict:
+    """The measure app's Wilson mesons (qex_tpu/apps/measure.py:111-130):
+    12 point-source solves through solve_eo at 24^3x32 (m=0.1, bc pppa,
+    r2req 1e-10) and all nine channels; raises on a propagator's true
+    residual, a non-finite correlator or a pion C(t) <= 0."""
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.observables import mesons
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice((24, 24, 24, 32))
+    m, r2req = 0.1, 1e-10
+    u = random_links(lat, gen)
+    w = wl.new_wilson_eo(lat, u, m)
+    params = SolverParams(r2req=r2req, maxits=1000, restarts=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                         # count the main path only
+    t0 = time.perf_counter()
+    cols, its, trues = [], [], []
+    for s0 in range(4):
+        for c0 in range(lat.nc):
+            src = torch.zeros((4, lat.nc) + lat.dims, dtype=torch.complex64,
+                              device=u.device)
+            src[(s0, c0) + (0,) * lat.nd] = 1.0
+            x, stats = wl.solve_eo(w, src, params)
+            cols.append(x)
+            its.append(stats.iterations)
+            trues.append(wilson_true_r2(lat, u, m, "pppa", x, src))
+    props = torch.stack(cols).reshape((4, lat.nc) + cols[0].shape)
+    del cols
+    corr = mesons.wilson_mesons_from_prop(lat, props, mesons.WILSON_CHANNELS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    res = {"phase": "wilson_mesons", "dims": list(lat.dims), "m": m,
+           "r2req": r2req, "seconds": secs, "iterations": its,
+           "true_rel_r2_max": max(trues),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "propagator_gib": props.numel() * props.element_size() / 2**30,
+           "kernel_launches": launches,
+           "correlators": {ch: [float(v) for v in c.cpu()]
+                           for ch, c in corr.items()}}
+    emit(res)
+    if not max(trues) <= 10 * r2req:
+        raise AssertionError(f"wilson_mesons: true residual {max(trues)}")
+    for ch, c in corr.items():
+        if not bool(torch.isfinite(c).all()):
+            raise AssertionError(f"wilson_mesons: {ch} is not finite")
+    if not bool((corr["pion"] > 0).all()):
+        raise AssertionError("wilson_mesons: pion C(t) <= 0")
+    if launches["wilson8_hop"] <= 0:
+        raise AssertionError("wilson_mesons: wilson8_hop never launched")
+    return res
+
+
+def phase_wilson_mg(gen) -> dict:
+    """exp_mg_ab.py's A/B (MG_AB_cpu.json's scale): m=0.005, bc pppp,
+    r2req 1e-8, expm(0.45 tah) links, at 8^3x16 and 16^3x32.  CGNE is
+    solve_eo (B3); MG is solve_mg with MGParams(nlevels=1, nvec=8,
+    relax_iters=30, m=16, k_m=4, bottom_iters=16), its fine operator the
+    plain wilson_d as in the JAX package.  Setup time = (build + solve)
+    - (solve on the reused hierarchy)."""
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.solvers.base import MGParams, SolverParams
+    m, r2req = 0.005, 1e-8
+    p_cg = SolverParams(r2req=r2req, maxits=4000, restarts=2)
+    p_mg = SolverParams(r2req=r2req, maxits=400, backend="mg",
+                        mg=MGParams(nlevels=1, nvec=8, relax_iters=30,
+                                    m=16, k_m=4, bottom_iters=16))
+    res = {"phase": "wilson_mg", "m": m, "r2req": r2req, "scale": 0.45}
+    torch.cuda.synchronize()
+    reset_counts()                         # count the main path only
+    for dims in ((8, 8, 8, 16), (16, 16, 16, 32)):
+        lat = Lattice(dims)
+        u = random_links(lat, gen, scale=0.45)
+        b = torch.randn((4, 3) + lat.dims, dtype=torch.complex64,
+                        generator=gen, device=gen.device)
+        weo = wl.new_wilson_eo(lat, u, m, "pppp")
+        wl.solve_eo(weo, b, p_cg)                           # warm-up
+        (x, st_cg), t_cg = timed_once_s(lambda: wl.solve_eo(weo, b, p_cg))
+        true_cg = wilson_true_r2(lat, u, m, "pppp", x, b)
+        w = wl.new_wilson(lat, u, m, "pppp")
+        (x, st_mg, hier), t_build = timed_once_s(
+            lambda: wl.solve_mg(w, b, p_mg))
+        (x, st_mg, _), t_mg = timed_once_s(
+            lambda: wl.solve_mg(w, b, p_mg, hierarchy=hier))
+        true_mg = wilson_true_r2(lat, u, m, "pppp", x, b)
+        t_setup = t_build - t_mg
+        rec = {"cgne_eo": {"seconds": t_cg, "iterations": st_cg.iterations,
+                           "true_rel_r2": true_cg},
+               "mg_kcycle": {"seconds": t_mg, "setup_seconds": t_setup,
+                             "iterations": st_mg.iterations,
+                             "true_rel_r2": true_mg},
+               "speedup_mg_over_cgne": t_cg / t_mg,
+               "breakeven_solves": (t_setup / (t_cg - t_mg)
+                                    if t_cg > t_mg else None)}
+        res[dims_label(dims)] = rec
+        del hier, x
+        for tag, true in (("cgne", true_cg), ("mg", true_mg)):
+            if not true <= 10 * r2req:
+                raise AssertionError(f"wilson_mg {dims} {tag}: true "
+                                     f"residual {true}")
+    res["kernel_launches"] = read_counts()
+    emit(res)
+    if res["kernel_launches"]["wilson8_hop"] <= 0:
+        raise AssertionError("wilson_mg: wilson8_hop never launched")
+    return res
+
+
 def profiled(tag: str, fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device kernel
     count and busy time (sum of kernel durations; one stream, so they
@@ -831,8 +1119,8 @@ def profiled(tag: str, fn) -> dict:
 
 def profile_main() -> int:
     """``--profile``: one f32 and one sloppy solve, one smeared config-4
-    trajectory and one HISQ trajectory at 24^4 under torch.profiler (not
-    part of the checked run)."""
+    trajectory and one HISQ trajectory at 24^4, and one Wilson eo solve
+    at 24^3x32, under torch.profiler (not part of the checked run)."""
     from qex_tpu_torch.gauge.smear import HypCoefs
     from qex_tpu_torch.lattice import Lattice
     from qex_tpu_torch.physics import stag_solve
@@ -857,6 +1145,14 @@ def profile_main() -> int:
     u = random_links(lat, gen, scale=HISQ_START)
     th.hmc_step(gen, u)                                   # warm-up
     profiled("hmc_hisq", lambda: th.hmc_step(gen, u))
+    from qex_tpu_torch.physics import wilson as wl
+    lat = Lattice((24, 24, 24, 32))
+    w = wl.new_wilson_eo(lat, random_links(lat, gen), 0.1)
+    b = torch.randn((4, 3) + lat.dims, dtype=torch.complex64, generator=gen,
+                    device=gen.device)
+    params = SolverParams(r2req=1e-12, maxits=1000, restarts=3)
+    wl.solve_eo(w, b, params)                             # warm-up
+    profiled("wilson_solve_f32", lambda: wl.solve_eo(w, b, params))
     return 0
 
 
@@ -888,19 +1184,25 @@ def main() -> int:
     hhmc = phase_hmc_hisq(gen)
     _ab(gen, "ab_hisq", hisq_theory, start=HISQ_START,
         needed=("hisq16_dslash",))
+    kern.update(phase_wilson_kernel(gen))
+    wsolve = phase_wilson_solve(gen)
+    wmesons = phase_wilson_mesons(gen)
+    wmg = phase_wilson_mg(gen)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(dev["smi"], flush=True)
     # each kernel's main path: the smeared config-4 trajectories and the
     # app for the 8-term kernels, config 5's solves and the HISQ
-    # trajectories for the 16-term ones
-    paths = {"stag8": (smeared, app), "hisq16": (hsolve, hhmc)}
+    # trajectories for the 16-term ones, the Wilson solves, mesons and
+    # MG A/B for the Wilson hop
+    paths = {"stag8": (smeared, app), "hisq16": (hsolve, hhmc),
+             "wilson8": (wsolve, wmesons, wmg)}
     kernels = []
     for name, (kind, _ldt, _c) in KERNELS.items():
         k = kern[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"qex_tpu_torch/csrc/{SOURCES[kind]}",
-            "replaces": "qex_tpu/physics/stag_pallas_hisq.py:166",
+            "replaces": REPLACES[kind],
             "launches": sum(ph["kernel_launches"][name]
                             for ph in paths[kind]),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],

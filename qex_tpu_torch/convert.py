@@ -1,4 +1,5 @@
-"""Carry fields and theory settings across from the JAX package.
+"""Carry fields, operators and theory settings across from the JAX
+package.
 
 Arguments are read as plain attributes or numpy arrays, so this module
 imports neither jax nor ``qex_tpu``: a ``qex_tpu`` object with the
@@ -7,6 +8,7 @@ attributes named below converts as well as any stand-in.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence
 
 import numpy as np
@@ -17,7 +19,7 @@ from .gauge.action import GaugeActionCoeffs
 from .gauge.smear import HypCoefs, StoutCoefs
 from .lattice import Lattice
 from .mcmc.theory import FermionSpec, GaugeActionSpec, LatticeFieldTheory
-from .solvers.base import SolverParams
+from .solvers.base import MGParams, SolverParams
 
 
 def gauge_from_reference(u_np: np.ndarray,
@@ -41,7 +43,16 @@ def _solver_params(sp: Any) -> SolverParams | None:
     return SolverParams(r2req=float(sp.r2req), maxits=int(sp.maxits),
                         restarts=int(sp.restarts),
                         sloppy=bool(getattr(sp, "sloppy", False)),
-                        mesh=getattr(sp, "mesh", None))
+                        mesh=getattr(sp, "mesh", None),
+                        backend=str(getattr(sp, "backend", "cg")),
+                        mg=_mg_params(getattr(sp, "mg", None)))
+
+
+def _mg_params(mp: Any) -> MGParams | None:
+    if mp is None:
+        return None
+    return MGParams(**{f.name: type(f.default)(getattr(mp, f.name))
+                       for f in dataclasses.fields(MGParams)})
 
 
 def _smear(sm: Any) -> HypCoefs | StoutCoefs | None:
@@ -92,3 +103,51 @@ def theory_from_reference(lat: Any, gauge: Any, fermions: Sequence[Any] = (),
             r2req=1e-12, maxits=2000, restarts=3),
         force_solver_params=_solver_params(force_solver_params),
         tau=float(tau))
+
+
+def _tensor(a: Any, device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def wilson_from_reference(w: Any, device: torch.device | str | None = None,
+                          dtype: torch.dtype = torch.complex64):
+    """A JAX ``WilsonD`` (attributes lat, g, m), ``WilsonEO`` or
+    ``FastWilsonEO`` (lat, g_e, g_o, m; the fast layout has 6-d links)
+    -> the port's counterpart, links on ``device`` (default: the CUDA
+    card)."""
+    from .physics import wilson as wl
+    from .physics import wilson_fast as wf
+    device = resolve(device)
+    lat = Lattice(tuple(w.lat.dims), nc=int(w.lat.nc))
+    if hasattr(w, "g"):
+        return wl.WilsonD(lat, _tensor(w.g, device, dtype), float(w.m))
+    cls = wf.FastWilsonEO if np.ndim(w.g_e) == 6 else wl.WilsonEO
+    return cls(lat, _tensor(w.g_e, device, dtype),
+               _tensor(w.g_o, device, dtype), float(w.m))
+
+
+def mg_hierarchy_from_reference(h: Any,
+                                device: torch.device | str | None = None,
+                                dtype: torch.dtype = torch.complex64):
+    """A JAX ``MGHierarchy`` (setups with lat, bs, w; assembled
+    ``CoarseStencil``s with diag, hops, axes, or None; lats) -> the
+    port's, on ``device`` (default: the CUDA card)."""
+    from .mg.coarse import CoarseStencil
+    from .mg.kcycle import MGHierarchy
+    from .mg.twogrid import MGSetup
+    device = resolve(device)
+
+    def lat_of(lt):
+        return Lattice(tuple(lt.dims), nc=int(lt.nc))
+
+    def arr(a):
+        return None if a is None else _tensor(a, device, dtype)
+
+    setups = tuple(MGSetup(lat_of(s.lat), int(s.bs), arr(s.w))
+                   for s in h.setups)
+    stencils = tuple(
+        None if c is None else CoarseStencil(
+            arr(c.diag), tuple((arr(p), arr(m)) for p, m in c.hops),
+            tuple(int(a) for a in c.axes))
+        for c in h.stencils)
+    return MGHierarchy(setups, stencils, tuple(lat_of(lt) for lt in h.lats))

@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from ..device import resolve
 from ..lattice import Lattice
 from ..ops import eo, linalg
 from ..ops.shifts import shift
@@ -32,9 +33,12 @@ def _coord(lat: Lattice, mu: int, device) -> torch.Tensor:
 
 
 def staggered_phases(lat: Lattice, dtype: torch.dtype = torch.float32,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
+                     device: torch.device | str | None = None
+                     ) -> torch.Tensor:
     """eta_mu(x) field, shape (nd, *dims), values +-1:
-    eta_0 = 1, eta_mu = (-1)^{x_0 + ... + x_{mu-1}}."""
+    eta_0 = 1, eta_mu = (-1)^{x_0 + ... + x_{mu-1}}; on ``device``
+    (default: the CUDA card; raises without one)."""
+    device = resolve(device)
     phases = []
     csum = torch.zeros(lat.dims, dtype=torch.int64, device=device)
     for mu in range(lat.nd):
@@ -45,13 +49,15 @@ def staggered_phases(lat: Lattice, dtype: torch.dtype = torch.float32,
 
 def bc_signs(lat: Lattice, bc: str = "pppa",
              dtype: torch.dtype = torch.float32,
-             device: torch.device | str = "cpu") -> torch.Tensor:
+             device: torch.device | str | None = None) -> torch.Tensor:
     """Boundary-condition sign field, shape (nd, *dims): 'p' periodic,
     'a' anti-periodic (links on the last slice of that direction pick
-    up -1)."""
+    up -1); on ``device`` (default: the CUDA card; raises without
+    one)."""
     nd = lat.nd
     if len(bc) != nd:
         raise ValueError(f"bc string length {len(bc)} != nd {nd}")
+    device = resolve(device)
     out = []
     for mu, c in enumerate(bc):
         f = torch.ones(lat.dims, dtype=dtype, device=device)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions on a card: the
 8-term stag8 hop (f32 links, B1; bf16 links, B1b) with a sloppy solve,
-and the 16-term HISQ hop (f32 links, B2; bf16 links, B2b) with a
-multi-mass solve.
+the 16-term HISQ hop (f32 links, B2; bf16 links, B2b) with a
+multi-mass solve, and the Wilson hop (f32 links, B3; bf16 links, B3b)
+with f32 and sloppy eo solves.
 
 Imports only torch and qex_tpu_torch, so it runs where jax is absent:
 
@@ -9,8 +10,8 @@ Imports only torch and qex_tpu_torch, so it runs where jax is absent:
         tests/test_torch_kernels_gpu.py
 
 Without a CUDA device every test here skips (the kernels have no CPU
-mode; their plain twins are covered by tests/test_torch_staggered.py
-and tests/test_torch_hisq.py).
+mode; their plain twins are covered by tests/test_torch_staggered.py,
+tests/test_torch_hisq.py and tests/test_torch_wilson.py).
 """
 
 import pytest
@@ -215,3 +216,98 @@ def test_hisq_multishift_on_card(cuda_device):
     for m, x in zip(masses, xs):
         r = st.d2ee3(s3, x, m) - b
         assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-8
+
+
+def _wilson(lat, gen, links_dtype=torch.float32, m=0.1):
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    u = torch.stack([linalg.expm(0.7 * group.random_tah(
+        gen, lat.dims, 3, torch.complex64)) for _ in range(4)])
+    return u, wp.new_pallas_wilson(wl.new_wilson_eo(lat, u, m),
+                                   links_dtype=links_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("links", ["f32", "bf16"])
+@pytest.mark.parametrize("dims", [(6, 4, 4, 8), (4, 4, 8, 8),
+                                  (8, 6, 4, 4)])
+def test_wilson8_kernel_matches_plain_on_card(cuda_device, dims, links):
+    """Kernels B3 (f32 links) and B3b (bf16 links) against the plain
+    twin on the same links: both parities, the fused m_ee epilogue and
+    m_ee_dag.  (8, 6, 4, 4) holds Th = 2, where a t hop wraps at once."""
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    lat = Lattice(dims)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    ldt = torch.float32 if links == "f32" else torch.bfloat16
+    _, pw = _wilson(lat, gen, ldt)
+    assert pw.l_e.dtype == ldt
+    x = torch.randn((4, 3, dims[3] // 2, dims[2], dims[1] * dims[0]),
+                    dtype=torch.complex64, generator=gen, device=cuda_device)
+    counter = "launches" if links == "f32" else "launches_bf16"
+    before = getattr(wp.hop_w, counter)
+    for parity in (0, 1):
+        got = wp.hop_w(pw, x, parity)
+        torch.cuda.synchronize()
+        assert _rel2(got, wp.hop_w_plain(pw, x, parity)) < TOL
+    hop = lambda v, par: wp.hop_w_plain(pw, v, par)
+    got = wp.m_ee_w(pw, x)
+    torch.cuda.synchronize()
+    assert _rel2(got, pw.a * x - hop(hop(x, 1), 0) / pw.a) < TOL
+    got = wp.m_ee_dag_w(pw, x)
+    g5 = torch.tensor([1, 1, -1, -1], dtype=torch.complex64,
+                      device=cuda_device).reshape(4, 1, 1, 1, 1)
+    torch.cuda.synchronize()
+    assert _rel2(got, g5 * (pw.a * (g5 * x)
+                            - hop(hop(g5 * x, 1), 0) / pw.a)) < TOL
+    assert getattr(wp.hop_w, counter) == before + 6
+
+
+@pytest.mark.gpu
+def test_wilson8_kernel_rejects_bad_operands(cuda_device):
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    lat = Lattice((4, 4, 4, 4))
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    _, pw = _wilson(lat, gen)
+    x = torch.zeros((4, 3, 2, 4, 16), dtype=torch.complex64,
+                    device=cuda_device)
+    with pytest.raises(TypeError):
+        wp.hop_w(pw, x.to(torch.complex128), 0)
+    with pytest.raises(ValueError):
+        wp.hop_w(pw, x[:3], 0)
+    with pytest.raises(ValueError):
+        wp.hop_w(pw, x.transpose(3, 4).contiguous().transpose(3, 4), 0)
+    with pytest.raises(ValueError):                 # float64 links
+        wp.hop_w(wp.PallasWilsonEO(lat, pw.l_e.double(), pw.l_o.double(),
+                                   pw.m), x, 0)
+    with pytest.raises(ValueError):                 # links on the host
+        wp.hop_w(wp.PallasWilsonEO(lat, pw.l_e.cpu(), pw.l_o.cpu(), pw.m),
+                 x, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sloppy", [False, True])
+def test_wilson_solve_eo_on_card(cuda_device, sloppy):
+    """The eo CGNE solve goes through B3 (and, sloppy, B3b) and never
+    through the plain twin; it reaches the requested true residual."""
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice((8, 8, 8, 8))
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    u, _ = _wilson(lat, gen)
+    b = torch.randn((4, 3) + lat.dims, dtype=torch.complex64, generator=gen,
+                    device=cuda_device)
+    before = (wp.hop_w.launches, wp.hop_w.launches_bf16)
+    plain = wp.hop_w_plain
+    wp.hop_w_plain = None        # any call of the twin would fail
+    try:
+        x, stats = wl.solve_eo(wl.new_wilson_eo(lat, u, 0.1), b,
+                               SolverParams(r2req=1e-10, maxits=1000,
+                                            restarts=5, sloppy=sloppy))
+    finally:
+        wp.hop_w_plain = plain
+    assert wp.hop_w.launches > before[0]
+    assert (wp.hop_w.launches_bf16 > before[1]) == sloppy
+    d = wl.new_wilson(lat, u.to(torch.complex128), 0.1)
+    r = wl.wilson_d(d, x.to(torch.complex128)) - b.to(torch.complex128)
+    assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-9

@@ -92,7 +92,9 @@ def test_package_imports_no_jax():
         if p.name != "__init__.py")
     assert {"qex_tpu_torch.gauge.smear", "qex_tpu_torch.apps.staghmc_spv",
             "qex_tpu_torch.utils.config", "qex_tpu_torch.io.checkpoint",
-            "qex_tpu_torch.device"} <= set(mods)
+            "qex_tpu_torch.device", "qex_tpu_torch.physics.wilson_pallas",
+            "qex_tpu_torch.mg.kcycle",
+            "qex_tpu_torch.observables.mesons"} <= set(mods)
     code = ("import sys, importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules "
@@ -108,14 +110,25 @@ def test_entry_points_default_to_the_card():
     and on a host without one they raise instead of building CPU
     tensors."""
     from qex_tpu_torch import convert
+    from qex_tpu_torch.mg import coarse, twogrid
     from qex_tpu_torch.ops import group
+    from qex_tpu_torch.physics import staggered as st
     u = np.zeros((4, 3, 3) + DIMS, complex)
-    if torch.cuda.is_available():
-        assert group.unit_gauge(LAT).is_cuda
-        assert convert.gauge_from_reference(u).is_cuda
-        return
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        group.unit_gauge(LAT)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        convert.gauge_from_reference(u)
-    assert group.unit_gauge(LAT, device="cpu").device.type == "cpu"
+    lat2 = type(LAT)((2, 2, 2, 2))
+    builders = [
+        lambda **kw: group.unit_gauge(LAT, **kw),
+        lambda **kw: convert.gauge_from_reference(u, **kw),
+        lambda **kw: st.staggered_phases(LAT, **kw),
+        lambda **kw: st.bc_signs(LAT, **kw),
+        lambda **kw: twogrid.mg_setup(lat2, lambda v: v, nvec=1,
+                                      relax_iters=1, **kw).w,
+        lambda **kw: coarse.assemble_stencil(lambda v: v, 1, (2, 2),
+                                             torch.complex64, **kw).diag,
+    ]
+    for build in builders:
+        if torch.cuda.is_available():
+            assert build().is_cuda
+            continue
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        assert build(device="cpu").device.type == "cpu"

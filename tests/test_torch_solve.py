@@ -109,7 +109,10 @@ M8 = 0.25
 @pytest.fixture(scope="module")
 def stag8_bf16():
     """The JAX 8-term kernel on bf16 links in interpret mode, complex64
-    links and spinor: both parities and d2ee in one jit."""
+    links and spinor: both parities in one jit, and d2ee as
+    d2ee_pallas_hisq computes it, m^2 x - D_0 D_1 x, on those two
+    compiled hops (each interpret-mode instance costs seconds to
+    compile)."""
     from qex_tpu.physics import stag_fast as jsf
     from qex_tpu.physics import stag_pallas_hisq as jsph
     rng = np.random.default_rng(17)
@@ -123,11 +126,11 @@ def stag8_bf16():
                                     links_dtype=jnp.bfloat16)
         return (jp8.l_e, jp8.l_o,
                 [jsph.dslash_pallas_hisq_c(jp8, x, parity, interpret=True)
-                 for parity in (0, 1)],
-                jsph._join(jsph.d2ee_pallas_hisq(jp8, jsph._split(x), M8,
-                                                 interpret=True)))
+                 for parity in (0, 1)])
 
-    l_e, l_o, ds, ee = compile_ref(refs, u, xf)(u, xf)
+    hops = compile_ref(refs, u, xf)
+    l_e, l_o, ds = hops(u, xf)
+    ee = (M8 * M8) * xf - np.asarray(hops(u, np.asarray(ds[1]))[2][0])
     return u, xf, np.asarray(l_e), np.asarray(l_o), ds, ee
 
 

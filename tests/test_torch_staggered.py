@@ -44,10 +44,11 @@ def test_phases_and_bc_exact():
     ref_eta, ref_bc = compile_ref(lambda: (
         jst.staggered_phases(jlat, jnp.float64),
         [jst.bc_signs(jlat, bc, jnp.float64) for bc in bcs]))()
-    assert np.array_equal(n(st.staggered_phases(lat, torch.float64)),
+    assert np.array_equal(n(st.staggered_phases(lat, torch.float64,
+                                                "cpu")),
                           np.asarray(ref_eta))
     for bc, ref in zip(bcs, ref_bc):
-        assert np.array_equal(n(st.bc_signs(lat, bc, torch.float64)),
+        assert np.array_equal(n(st.bc_signs(lat, bc, torch.float64, "cpu")),
                               np.asarray(ref))
     with pytest.raises(ValueError):
         st.bc_signs(lat, "ppp")
@@ -126,20 +127,24 @@ def test_new_stag8_links_exact(ops, links):
 
 @pytest.fixture(scope="module")
 def stag8(ops):
-    """The JAX 8-term kernel in interpret mode: both parities and d2ee,
-    in one jit (each interpret-mode instance costs seconds to compile)."""
+    """The JAX 8-term kernel in interpret mode: both parities in one jit
+    (each interpret-mode instance costs seconds to compile), and d2ee as
+    d2ee_pallas_hisq computes it, m^2 x - D_0 D_1 x, on those two
+    compiled hops."""
     jlat, _, _, xe, js, s = ops
     jfs = jsf.new_fast(js)
     jp8 = jsph.new_pallas_stag8(jfs)
     xf = np.asarray(jsf.to_fast(jnp.asarray(xe), jlat))
 
     def refs(x):
-        return ([jsph.dslash_pallas_hisq_c(jp8, x, parity, interpret=True)
-                 for parity in (0, 1)],
-                jsph._join(jsph.d2ee_pallas_hisq(jp8, jsph._split(x), M8,
-                                                 interpret=True)))
+        return [jsph.dslash_pallas_hisq_c(jp8, x, parity, interpret=True)
+                for parity in (0, 1)]
 
-    ds, ee = compile_ref(refs, jnp.asarray(xf))(jnp.asarray(xf))
+    hops = compile_ref(refs, jnp.asarray(xf))
+    ds = hops(jnp.asarray(xf))
+    # the hops take x in its dtype and round it to float32, as _split
+    d1 = np.asarray(ds[1]).astype(xf.dtype)
+    ee = (M8 * M8) * xf.astype(np.complex64) - np.asarray(hops(d1)[0])
     return jfs, ds, ee, sh.new_stag8(s), xf
 
 
