@@ -49,11 +49,24 @@ Phases, each printed as one JSON line:
      through solve_eo at 24^3x32 and all nine Wilson meson channels;
  15. wilson_mg: exp_mg_ab.py's composition (m=0.005, bc pppp, r2req
      1e-8) at 8^3x16 and 16^3x32: CGNE through B3 against the K-cycle
-     multigrid (setup, warm solve on the reused hierarchy, break-even).
+     multigrid (setup, warm solve on the reused hierarchy, break-even);
+ 16. stag_generations_kernel: the older staggered kernels (v1 B4/B4b, v2
+     B5, v3 B6/B6b, v4 B7/B7b with and without compute_only, the split
+     modes B8) against their plain twins, both parities, with the
+     d2ee/d2dd of each, at 8x4x4x8 and 32^4; at 32^4 each generation
+     against the 8-term kernel B1/B1b on the same links, and B8's full
+     mode against 1/2 (F - B) of the v3 links;
+ 17. stag_generations_time: the generation benchmark's A/B at 32^4
+     (qex_tpu_torch.bench.stag_generations.ab, every instance, B1/B1b
+     beside them), then each instance timed over 200 launches against
+     its plain twin at 24^4 and 32^4;
+ 18. stag_generations_cg: solvers.cg.cg_solve at 32^4, m=0.1, r2req
+     1e-10, through d2ee of v1, v2, v3, v4 and B1.
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10, 13, 14, 15) and read just after it.  Then the card line, the
-kernels summary and, last, the ok line.  Any failed check raises, so the script exits non-zero
-and prints no ok line; without a CUDA device it exits non-zero at once.
+7, 9, 10, 13, 14, 15, the A/B of 17, 18) and read just after it.  Then
+the card line, the kernels summary and, last, the ok line.  Any failed
+check raises, so the script exits non-zero and prints no ok line;
+without a CUDA device it exits non-zero at once.
 
 ``--profile`` instead runs a 24^4 f32 solve, a sloppy solve, one smeared
 config-4 trajectory, one HISQ trajectory and a 24^3x32 Wilson eo solve
@@ -135,11 +148,39 @@ KERNELS = {   # name: (hop kind, links dtype, launch counter)
     "wilson8_hop": ("wilson8", torch.float32, "launches"),
     "wilson8_hop_bf16": ("wilson8", torch.bfloat16, "launches_bf16"),
 }
+# the older staggered generations (phases 16-18): name -> (kind, links
+# dtype, launch counter); kind v1..v4 or split, as the generation
+# benchmark's Instance.kind, and for split the counter names the mode
+KERNELS.update({
+    "stag_v1_dslash": ("v1", torch.float32, "launches"),
+    "stag_v1_dslash_bf16": ("v1", torch.bfloat16, "launches_bf16"),
+    "stag_v2_dslash": ("v2", torch.float32, "launches"),
+    "stag_v3_dslash": ("v3", torch.float32, "launches"),
+    "stag_v3_dslash_bf16": ("v3", torch.bfloat16, "launches_bf16"),
+    "stag_v4_dslash": ("v4", torch.float32, "launches"),
+    "stag_v4_dslash_bf16": ("v4", torch.bfloat16, "launches_bf16"),
+    "stag_v4_compute_only": ("v4", torch.float32, "launches_compute_only"),
+    "stag_v4_compute_only_bf16": ("v4", torch.bfloat16,
+                                  "launches_compute_only_bf16"),
+    **{f"stag_v3_split_{m}": ("split", torch.float32, f"launches_{m}")
+       for m in ("dma", "matvec", "shifts", "compute", "full")}})
+GEN_KINDS = ("v1", "v2", "v3", "v4", "split")
 SOURCES = {"stag8": "stag8_dslash.cu", "hisq16": "hisq16_dslash.cu",
-           "wilson8": "wilson8_dslash.cu"}
+           "wilson8": "wilson8_dslash.cu", "v1": "stag_v1_dslash.cu",
+           "v2": "stag_v2_dslash.cu", "v3": "stag_v3_dslash.cu",
+           "v4": "stag_v3_dslash.cu", "split": "stag_v3_dslash.cu"}
 REPLACES = {"stag8": "qex_tpu/physics/stag_pallas_hisq.py:166",
             "hisq16": "qex_tpu/physics/stag_pallas_hisq.py:166",
-            "wilson8": "qex_tpu/physics/wilson_pallas.py:167"}
+            "wilson8": "qex_tpu/physics/wilson_pallas.py:167",
+            "v1": "qex_tpu/physics/stag_pallas.py:69",
+            "v2": "qex_tpu/physics/stag_pallas2.py:59",
+            "v3": "qex_tpu/physics/stag_pallas3.py:123",
+            "v4": "qex_tpu/physics/stag_pallas4.py:39",
+            "split": "exp_pallas3.py:19"}
+# phases 16-18: the generation benchmark's volume and CG (exp_s8.py:36)
+GEN_DIMS = (32, 32, 32, 32)
+GEN_MASS = 0.1
+TOL_CG_ITS = 2          # CG iterations within +-2 of B1's
 # Wilson solves (phases 13-14): true relative r^2 of D x = b, by the
 # plain operator in complex128; exp_wilson.py's r2req 1e-12 for phase 13
 TOL_WILSON = 1e-11
@@ -170,6 +211,31 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_time_ms(fn, reps: int = 200, rounds: int = 5) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph,
+    the graph replayed ``rounds`` times between CUDA events (median), so
+    the host's cost of each launch lies outside the timed window."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def timed_once_s(fn):
     """(result, seconds) of one call, by CUDA events around it."""
     start = torch.cuda.Event(enable_timing=True)
@@ -194,10 +260,17 @@ def random_links(lat, gen, dtype=torch.complex64, scale: float = 0.7):
 
 
 def _wrapper(kind: str):
+    from qex_tpu_torch.bench import exp_pallas3 as ep3
     from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.physics import stag_pallas as sp1
+    from qex_tpu_torch.physics import stag_pallas2 as sp2
+    from qex_tpu_torch.physics import stag_pallas3 as sp3
+    from qex_tpu_torch.physics import stag_pallas4 as sp4
     from qex_tpu_torch.physics import wilson_pallas as wp
     return {"stag8": sh.dslash_stag8, "hisq16": sh.dslash_hisq16,
-            "wilson8": wp.hop_w}[kind]
+            "wilson8": wp.hop_w, "v1": sp1.dslash_pallas,
+            "v2": sp2.dslash_pallas2, "v3": sp3.dslash_pallas3,
+            "v4": sp4.dslash_pallas4, "split": ep3.run}[kind]
 
 
 def reset_counts() -> None:
@@ -217,7 +290,7 @@ def phase_device() -> dict:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     from qex_tpu_torch import _native
-    sources = sorted(SOURCES.values())
+    sources = sorted(set(SOURCES.values()))
     t0 = time.perf_counter()
     _native.build(sources)                 # one nvcc each, in parallel
     for src in sources:
@@ -890,7 +963,6 @@ def phase_wilson_kernel(gen) -> dict:
     """B3 and B3b against the plain twin at 6x4x4x8 (the JAX kernel
     test's geometry), 4x4x8x8, 24^3x32 (exp_wilson.py) and 32^3x64, on
     expm(0.7 tah) links; timed at the last two."""
-    from qex_tpu_torch import _native
     from qex_tpu_torch.lattice import Lattice
     out = {}
     timed = ((24, 24, 24, 32), (32, 32, 32, 64))
@@ -914,10 +986,8 @@ def phase_wilson_kernel(gen) -> dict:
     for recs in out.values():
         for dims in timed:
             add_stream_share(recs[dims_label(dims)], bw)
-    ptxas = [ln.strip() for ln in _native.BUILD_LOG.get(
-        SOURCES["wilson8"], {}).get("ptxas", "").splitlines()
-        if "registers" in ln or "spill" in ln]
-    emit({"phase": "wilson_kernel", "stream_gbs": bw, "ptxas": ptxas, **out})
+    emit({"phase": "wilson_kernel", "stream_gbs": bw,
+          "ptxas": ptxas_lines(SOURCES["wilson8"]), **out})
     res = {}
     for name, recs in out.items():
         res[name] = dict(recs["24x24x24x32"])
@@ -1089,6 +1159,245 @@ def phase_wilson_mg(gen) -> dict:
     return res
 
 
+def gen_instances() -> dict:
+    """Kernel name -> the generation benchmark's Instance, for the names
+    of phases 16-18."""
+    from qex_tpu_torch.bench import stag_generations as gens
+    out = {}
+    for name, (kind, ldt, counter) in KERNELS.items():
+        if kind in GEN_KINDS:
+            out[name] = gens.Instance(
+                kind, ldt, compute_only="compute_only" in counter,
+                mode=counter[len("launches_"):] if kind == "split" else None)
+    return out
+
+
+def ptxas_lines(source: str) -> list:
+    """The kernel names, registers and spills of a build made in this
+    process."""
+    from qex_tpu_torch import _native
+    return [ln.strip() for ln in _native.BUILD_LOG.get(source, {}).get(
+        "ptxas", "").splitlines()
+        if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
+
+def compare_generation(name: str, inst, op, x) -> dict:
+    """One older-generation kernel against its plain twin on the same
+    links: both parities and, for v1-v4 without compute_only, the d2ee
+    (and for v3/v4 the d2dd) wrappers; raises past TOL_KERNEL."""
+    from qex_tpu_torch.bench import stag_generations as gens
+    hop, plain = gens.hop(inst, op), gens.plain_hop(inst, op)
+    v = gens.to_layout(inst.kind, x)
+    res, max_abs = {}, 0.0
+
+    def check(key, got, ref, parity=None):
+        nonlocal max_abs
+        torch.cuda.synchronize()
+        res[key] = (rel2(got, ref) if parity is None
+                    else gens.deviation(inst, op, v, parity, got, ref))
+        max_abs = max(max_abs, float((got - ref).abs().max()))
+
+    for parity in (0, 1):
+        check(f"rel2_parity{parity}", hop(v, parity), plain(v, parity),
+              parity)
+    if inst.kind != "split" and not inst.compute_only:
+        m = GEN_MASS
+        check("rel2_d2ee", gens.d2ee(inst.kind, op)(v, m),
+              (m * m) * v - plain(plain(v, 1), 0))
+        if inst.kind in ("v3", "v4"):
+            from qex_tpu_torch.physics import stag_pallas3 as sp3
+            from qex_tpu_torch.physics import stag_pallas4 as sp4
+            d2dd = sp3.d2dd_pallas3 if inst.kind == "v3" else sp4.d2dd_pallas4
+            check("rel2_d2dd", d2dd(op, v, 1), -plain(plain(v, 0), 1))
+    res["max_abs_err"] = max_abs
+    for key, val in res.items():
+        if key.startswith("rel2") and not val <= TOL_KERNEL:
+            raise AssertionError(f"{name} at {tuple(x.shape)}: {key} {val}")
+    return res
+
+
+def phase_stag_generations_kernel(gen) -> dict:
+    """Phase 16: every older-generation instance against its twin at
+    8x4x4x8 (the JAX kernel tests' geometry) and 32^4, on expm(0.7 tah)
+    links; at 32^4 also each generation against B1 (f32 links) or B1b
+    (bf16 links) on the same gauge field, and B8's full mode against
+    1/2 (F - B) through B6 on links with the backward terms negated."""
+    from qex_tpu_torch.bench import stag_generations as gens
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.physics import stag_pallas3 as sp3
+    from qex_tpu_torch.physics import staggered as st
+    insts = gen_instances()
+    out = {name: {} for name in insts}
+    res = {"phase": "stag_generations_kernel"}
+    for dims in ((8, 4, 4, 8), GEN_DIMS):
+        lat = Lattice(dims)
+        s = sf.new_fast(st.new_stag_eo(lat, random_links(lat, gen)))
+        x = fast_vector(lat, gen)
+        b1 = {}
+        if dims == GEN_DIMS:
+            for ldt in (torch.float32, torch.bfloat16):
+                b1[ldt] = sh.dslash_stag8(sh.new_stag8(s, links_dtype=ldt),
+                                          x, 0)
+        for name, inst in insts.items():
+            op = gens.build(inst, s)
+            rec = {"dims": list(dims), "links": str(inst.links_dtype)}
+            rec.update(compare_generation(name, inst, op, x))
+            if b1 and inst.kind != "split" and not inst.compute_only:
+                got = gens.from_layout(inst.kind, gens.hop(inst, op)(
+                    gens.to_layout(inst.kind, x), 0))
+                rec["rel2_vs_B1"] = rel2(got, b1[inst.links_dtype])
+                if not rec["rel2_vs_B1"] <= TOL_KERNEL:
+                    raise AssertionError(f"{name}: against the 8-term "
+                                         f"kernel {rec['rel2_vs_B1']}")
+            if b1 and inst.mode == "full":
+                neg = torch.tensor([1.0] * 4 + [-1.0] * 4, device=x.device
+                                   ).reshape(8, 1, 1, 1, 1, 1, 1)
+                fb = sp3.PallasStagEO3(lat, op.l_e * neg, op.l_o * neg)
+                v = gens.to_layout("split", x)
+                got = gens.hop(inst, op)(v, 1)
+                ref = 0.5 * sp3.dslash_pallas3(fb, v, 1)
+                torch.cuda.synchronize()
+                rec["rel2_vs_half_f_minus_b"] = rel2(got, ref)
+                rec["rel2_vs_v3"] = rel2(got, sp3.dslash_pallas3(op, v, 1))
+                if not rec["rel2_vs_half_f_minus_b"] <= TOL_KERNEL:
+                    raise AssertionError(
+                        f"{name}: against 1/2 (F - B) "
+                        f"{rec['rel2_vs_half_f_minus_b']}")
+            out[name][dims_label(dims)] = rec
+            del op
+        del s, x, b1
+    res.update(out)
+    res["ptxas"] = {src: ptxas_lines(src) for src in (
+        "stag_v1_dslash.cu", "stag_v2_dslash.cu", "stag_v3_dslash.cu")}
+    emit(res)
+    return {name: max(r["max_abs_err"] for r in recs.values())
+            for name, recs in out.items()}
+
+
+def phase_stag_generations_time(gen) -> dict:
+    """Phase 17: the generation benchmark's A/B at 32^4 over every
+    instance (its main path: the counts are read around it), then each
+    instance and B1/B1b timed at 24^4 ("at_24") and 32^4 by CUDA events
+    over 200 launches, replayed from a CUDA graph ("ms", the kernel's
+    device time) and launched from the host ("ms_eager_launches", which
+    the wrapper's host cost bounds from below at some 22-39 us), with
+    its plain twin, GB/s by its bytes per site, GFLOP/s by its flops per
+    site and its bound at the data-sheet peaks and at the stream."""
+    from qex_tpu_torch.bench import stag_generations as gens
+    from qex_tpu_torch.lattice import Lattice
+    lat = Lattice(GEN_DIMS)
+    torch.cuda.synchronize()
+    reset_counts()                         # count the main path only
+    t0 = time.perf_counter()
+    lines = []
+    records = gens.ab(lat, gens.all_instances(), iters=50, seed=SEED,
+                      emit=lambda line: lines.append(json.loads(line)))
+    ab_s = time.perf_counter() - t0
+    launches = read_counts()
+    bw = stream_bandwidth_gbs()
+    timed = dict(gen_instances())
+    timed.update({"stag8_dslash": gens.Instance("s8"),
+                  "stag8_dslash_bf16": gens.Instance("s8", torch.bfloat16)})
+    out = {}
+    for dims in ((24, 24, 24, 24), GEN_DIMS):
+        tlat = Lattice(dims)
+        s, x = gens.setup(tlat, SEED)
+        for name, inst in timed.items():
+            op = gens.build(inst, s)
+            v = gens.to_layout(inst.kind, x)
+            hop, plain = gens.hop(inst, op), gens.plain_hop(inst, op)
+            k_ms = graph_time_ms(lambda: hop(v, 0))
+            eager_ms = cuda_time_ms(lambda: hop(v, 0), reps=200)
+            p_ms = cuda_time_ms(lambda: plain(v, 0), reps=5, rounds=3)
+            n = tlat.volume // 2
+            nbytes = gens.bytes_per_site(inst) * n
+            flops = gens.flops_per_site(inst) * n
+            bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+            flops_ms = flops / PEAK_F32_FLOPS * 1e3
+            rec = {"ms": k_ms, "ms_eager_launches": eager_ms,
+                   "plain_ms": p_ms,
+                   "bytes_per_site": gens.bytes_per_site(inst),
+                   "gflops": flops / (k_ms * 1e-3) / 1e9, "bytes": nbytes,
+                   "gbs": nbytes / (k_ms * 1e-3) / 1e9,
+                   "bound_ms": max(bytes_ms, flops_ms),
+                   "bound_by": ("bytes" if bytes_ms >= flops_ms
+                                else "operations")}
+            add_stream_share(rec, bw)
+            if dims == GEN_DIMS:
+                out[name] = dict(rec, at_24=out[name])
+            else:
+                out[name] = rec
+            del op
+        del s, x
+    res = {"phase": "stag_generations_time", "dims": list(GEN_DIMS),
+           "stream_gbs": bw, "ab_seconds": ab_s, "ab": lines,
+           "kernel_launches": launches, **out}
+    emit(res)
+    for rec in records:
+        if not math.isfinite(rec["ms_per_hop"]):
+            raise AssertionError(f"A/B {rec['instance']}: no time")
+    for name in gen_instances():
+        if launches[name] <= 0:
+            raise AssertionError(f"stag_generations_time: {name} never "
+                                 f"launched in the A/B")
+    return res
+
+
+def phase_stag_generations_cg(gen) -> dict:
+    """Phase 18: cg_solve at 32^4 (exp_s8.py's m=0.1), r2req 1e-10, on
+    expm(0.7 tah) links, through d2ee of v1, v2, v3, v4 (float32 links)
+    and B1's d2ee_stag8; true r^2 by the complex128 fast-layout
+    operator."""
+    from qex_tpu_torch.bench import stag_generations as gens
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.physics import staggered as st
+    from qex_tpu_torch.solvers import cg
+    lat = Lattice(GEN_DIMS)
+    m, r2req = GEN_MASS, 1e-10
+    s = sf.new_fast(st.new_stag_eo(lat, random_links(lat, gen)))
+    b = fast_vector(lat, gen)
+    s64 = sf.FastStagEO(lat, s.g_e.to(torch.complex128),
+                        s.g_o.to(torch.complex128))
+    b64 = b.to(torch.complex128)
+    res = {"phase": "stag_generations_cg", "dims": list(GEN_DIMS), "m": m,
+           "r2req": r2req}
+    torch.cuda.synchronize()
+    reset_counts()                         # count the main path only
+    for kind in ("s8", "v1", "v2", "v3", "v4"):
+        op = gens.build(gens.Instance(kind), s)
+        a = gens.d2ee(kind, op)
+        bk = gens.to_layout(kind, b)
+        (x, stats), secs = timed_once_s(lambda: cg.cg_solve(
+            lambda v: a(v, m), bk, r2req=r2req, maxits=3000))
+        r = sf.d2ee_fast(s64, gens.from_layout(kind, x).to(
+            torch.complex128), m) - b64
+        true = float((r.abs() ** 2).sum() / (b64.abs() ** 2).sum())
+        res[kind] = {"iterations": stats.iterations, "solver_r2": stats.r2,
+                     "true_rel_r2": true, "seconds": secs,
+                     "seconds_per_iteration": secs / stats.iterations}
+        del op, x
+    res["kernel_launches"] = read_counts()
+    emit(res)
+    its = res["s8"]["iterations"]
+    for kind in ("s8", "v1", "v2", "v3", "v4"):
+        if not res[kind]["true_rel_r2"] <= TOL_RES:
+            raise AssertionError(f"stag_generations_cg {kind}: true "
+                                 f"residual {res[kind]['true_rel_r2']}")
+        if abs(res[kind]["iterations"] - its) > TOL_CG_ITS:
+            raise AssertionError(f"stag_generations_cg {kind}: "
+                                 f"{res[kind]['iterations']} iterations "
+                                 f"against B1's {its}")
+    for name in ("stag8_dslash", "stag_v1_dslash", "stag_v2_dslash",
+                 "stag_v3_dslash", "stag_v4_dslash"):
+        if res["kernel_launches"][name] <= 0:
+            raise AssertionError(f"stag_generations_cg: {name} never "
+                                 f"launched")
+    return res
+
+
 def profiled(tag: str, fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device kernel
     count and busy time (sum of kernel durations; one stream, so they
@@ -1188,14 +1497,21 @@ def main() -> int:
     wsolve = phase_wilson_solve(gen)
     wmesons = phase_wilson_mesons(gen)
     wmg = phase_wilson_mg(gen)
+    gen_err = phase_stag_generations_kernel(gen)
+    gtime = phase_stag_generations_time(gen)
+    gcg = phase_stag_generations_cg(gen)
+    for name, err in gen_err.items():
+        kern[name] = dict(gtime[name], max_abs_err=err)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(dev["smi"], flush=True)
     # each kernel's main path: the smeared config-4 trajectories and the
     # app for the 8-term kernels, config 5's solves and the HISQ
     # trajectories for the 16-term ones, the Wilson solves, mesons and
-    # MG A/B for the Wilson hop
+    # MG A/B for the Wilson hop, the generation benchmark's A/B and CG
+    # for the older staggered kernels
     paths = {"stag8": (smeared, app), "hisq16": (hsolve, hhmc),
-             "wilson8": (wsolve, wmesons, wmg)}
+             "wilson8": (wsolve, wmesons, wmg),
+             **{kind: (gtime, gcg) for kind in GEN_KINDS}}
     kernels = []
     for name, (kind, _ldt, _c) in KERNELS.items():
         k = kern[name]

@@ -126,6 +126,38 @@ def wilson_from_reference(w: Any, device: torch.device | str | None = None,
                _tensor(w.g_o, device, dtype), float(w.m))
 
 
+def _plain_tensor(a: Any, device) -> torch.Tensor:
+    """A numpy (or jax) float32, float64 or bfloat16 array -> a tensor of
+    the same dtype and values (bfloat16 carried bit for bit)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def stag_generation_from_reference(p: Any,
+                                   device: torch.device | str | None = None):
+    """A JAX ``PallasStagEO`` (lat, g_e, g_o of shape (2, 4, 3, 3, Th, Z,
+    YX)), ``PallasStagEO2`` (lat, g_e, g_o of shape (Th, Z, 2, 4, 3, 3,
+    YX)) or ``PallasStagEO3`` (lat, l_e, l_o) -> the port's counterpart,
+    links of the same dtype (float32, float64 or bfloat16) and values on
+    ``device`` (default: the CUDA card)."""
+    from .physics import stag_pallas, stag_pallas2, stag_pallas3
+    device = resolve(device)
+    lat = Lattice(tuple(p.lat.dims), nc=int(p.lat.nc))
+    if hasattr(p, "l_e"):
+        return stag_pallas3.PallasStagEO3(lat, _plain_tensor(p.l_e, device),
+                                          _plain_tensor(p.l_o, device))
+    ge, go = _plain_tensor(p.g_e, device), _plain_tensor(p.g_o, device)
+    if tuple(ge.shape[:4]) == (2, 4, 3, 3):
+        return stag_pallas.PallasStagEO(lat, ge, go)
+    if tuple(ge.shape[2:6]) == (2, 4, 3, 3):
+        return stag_pallas2.PallasStagEO2(lat, ge, go)
+    raise ValueError(f"not a v1, v2 or v3 staggered operator: links of "
+                     f"shape {tuple(ge.shape)}")
+
+
 def mg_hierarchy_from_reference(h: Any,
                                 device: torch.device | str | None = None,
                                 dtype: torch.dtype = torch.complex64):

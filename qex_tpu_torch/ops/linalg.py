@@ -90,7 +90,10 @@ def dot(x: torch.Tensor, y: torch.Tensor, dtype: torch.dtype | None = None
 
 def redot(x: torch.Tensor, y: torch.Tensor,
           dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Real part of the global inner product, accumulated in ``dtype``."""
+    """Real part of the global inner product, accumulated in ``dtype``
+    (real tensors, such as split re/im vectors, take sum x y)."""
+    if not (x.is_complex() or y.is_complex()):
+        return torch.sum(x * y, dtype=dtype)
     return torch.sum(x.real * y.real + x.imag * y.imag, dtype=dtype)
 
 

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain torch versions on a card: the
 8-term stag8 hop (f32 links, B1; bf16 links, B1b) with a sloppy solve,
 the 16-term HISQ hop (f32 links, B2; bf16 links, B2b) with a
-multi-mass solve, and the Wilson hop (f32 links, B3; bf16 links, B3b)
-with f32 and sloppy eo solves.
+multi-mass solve, the Wilson hop (f32 links, B3; bf16 links, B3b)
+with f32 and sloppy eo solves, and the older staggered generations (v1
+B4/B4b, v2 B5, v3 B6/B6b, v4 B7/B7b, the v3 split modes B8) with a CG
+through each.
 
 Imports only torch and qex_tpu_torch, so it runs where jax is absent:
 
@@ -11,7 +13,8 @@ Imports only torch and qex_tpu_torch, so it runs where jax is absent:
 
 Without a CUDA device every test here skips (the kernels have no CPU
 mode; their plain twins are covered by tests/test_torch_staggered.py,
-tests/test_torch_hisq.py and tests/test_torch_wilson.py).
+tests/test_torch_hisq.py, tests/test_torch_wilson.py and
+tests/test_torch_stag_generations.py).
 """
 
 import pytest
@@ -311,3 +314,130 @@ def test_wilson_solve_eo_on_card(cuda_device, sloppy):
     d = wl.new_wilson(lat, u.to(torch.complex128), 0.1)
     r = wl.wilson_d(d, x.to(torch.complex128)) - b.to(torch.complex128)
     assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-9
+
+
+# --- the older staggered generations: B4-B8 ---------------------------------
+
+def _fast_ops(lat, gen):
+    from qex_tpu_torch.physics import stag_fast as sf
+    u = torch.stack([linalg.expm(0.7 * group.random_tah(
+        gen, lat.dims, 3, torch.complex64)) for _ in range(4)])
+    return sf.new_fast(st.new_stag_eo(lat, u))
+
+
+def _launch_count(inst):
+    """The launch counter that a hop of benchmark instance ``inst``
+    bumps."""
+    from qex_tpu_torch.bench import exp_pallas3 as ep3
+    from qex_tpu_torch.physics import stag_pallas as sp1
+    from qex_tpu_torch.physics import stag_pallas2 as sp2
+    from qex_tpu_torch.physics import stag_pallas3 as sp3
+    from qex_tpu_torch.physics import stag_pallas4 as sp4
+    if inst.kind == "split":
+        return getattr(ep3.run, f"launches_{inst.mode}")
+    fn = {"v1": sp1.dslash_pallas, "v2": sp2.dslash_pallas2,
+          "v3": sp3.dslash_pallas3, "v4": sp4.dslash_pallas4,
+          "s8": sh.dslash_stag8}[inst.kind]
+    name = "launches" + ("_compute_only" if inst.compute_only else "") \
+        + ("_bf16" if inst.links_dtype == torch.bfloat16 else "")
+    return getattr(fn, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("links", ["f32", "bf16"])
+@pytest.mark.parametrize("dims", [(8, 4, 4, 8), (6, 4, 2, 6), (4, 6, 8, 4)])
+def test_stag_generations_match_plain_on_card(cuda_device, dims, links):
+    """Kernels B4-B8 against their plain twins on the same links: both
+    parities, and the d2ee/d2dd wrappers of v1-v4.  (6, 4, 2, 6) holds
+    Z = 2 and Th = 3; (4, 6, 8, 4) Th = 2."""
+    from qex_tpu_torch.bench import stag_generations as gens
+    lat = Lattice(dims)
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    s = _fast_ops(lat, gen)
+    x = torch.randn((3, dims[3] // 2, dims[2], dims[1] * dims[0]),
+                    dtype=torch.complex64, generator=gen, device=cuda_device)
+    ldt = torch.float32 if links == "f32" else torch.bfloat16
+    for inst in gens.all_instances():
+        if inst.links_dtype != ldt or inst.kind == "s8":
+            continue
+        op = gens.build(inst, s)
+        v = gens.to_layout(inst.kind, x)
+        hop, plain = gens.hop(inst, op), gens.plain_hop(inst, op)
+        before = _launch_count(inst)
+        for parity in (0, 1):
+            got, ref = hop(v, parity), plain(v, parity)
+            torch.cuda.synchronize()
+            if inst.mode == "matvec":        # zero up to rounding
+                assert float((got - ref).abs().max()) < 1e-5, inst.label
+            else:
+                assert _rel2(got, ref) < TOL, (inst.label, parity)
+        assert _launch_count(inst) == before + 2, inst.label
+        if inst.kind in ("split", "s8") or inst.compute_only:
+            continue
+        got = gens.d2ee(inst.kind, op)(v, 0.3)
+        torch.cuda.synchronize()
+        assert _rel2(got, 0.09 * v - plain(plain(v, 1), 0)) < TOL, inst.label
+
+
+@pytest.mark.gpu
+def test_stag_generations_reject_bad_operands(cuda_device):
+    from qex_tpu_torch.bench import exp_pallas3 as ep3
+    from qex_tpu_torch.physics import stag_pallas as sp1
+    from qex_tpu_torch.physics import stag_pallas2 as sp2
+    from qex_tpu_torch.physics import stag_pallas3 as sp3
+    lat = Lattice((4, 4, 4, 4))
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    s = _fast_ops(lat, gen)
+    p1, p3 = sp1.new_pallas(s), sp3.new_pallas3(s)
+    x = torch.zeros((2, 3, 2, 4, 16), dtype=torch.float32,
+                    device=cuda_device)
+    for hop in (lambda v: sp1.dslash_pallas(p1, v, 0),
+                lambda v: sp3.dslash_pallas3(p3, v, 1)):
+        with pytest.raises(TypeError):
+            hop(x.double())
+        with pytest.raises(ValueError):
+            hop(x[:, :2])
+        with pytest.raises(ValueError):
+            hop(x.transpose(3, 4).contiguous().transpose(3, 4))
+    with pytest.raises(ValueError):                  # v2 takes float32 only
+        p2b = sp2.PallasStagEO2(lat, *(sp2.to_gridmajor_links(g) for g in (
+            sp1.new_pallas(s, torch.bfloat16).g_e,
+            sp1.new_pallas(s, torch.bfloat16).g_o)))
+        sp2.dslash_pallas2(p2b, sp2.to_gridmajor_spinor(x), 0)
+    with pytest.raises(ValueError):                  # B8 takes float32 only
+        ep3.run(sp3.new_pallas3(s, torch.bfloat16).l_e, x, lat, 0, "full")
+    with pytest.raises(ValueError):                  # links on the host
+        sp3.dslash_pallas3(sp3.PallasStagEO3(lat, p3.l_e.cpu(),
+                                             p3.l_o.cpu()), x, 0)
+    with pytest.raises(ValueError):                  # v3 links, v1 hop
+        sp1.dslash_pallas(sp1.PallasStagEO(lat, p3.l_e, p3.l_o), x, 0)
+
+
+@pytest.mark.gpu
+def test_stag_generations_cg_on_card(cuda_device):
+    """CG through d2ee of v1-v4 (f32 links) reaches the requested true
+    residual within 2 iterations of the 8-term kernel B1."""
+    from qex_tpu_torch.bench import stag_generations as gens
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.solvers import cg
+    lat = Lattice((8, 8, 8, 8))
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    s = _fast_ops(lat, gen)
+    b = torch.randn((3, 4, 8, 64), dtype=torch.complex64, generator=gen,
+                    device=cuda_device)
+    s64 = sf.FastStagEO(lat, s.g_e.to(torch.complex128),
+                        s.g_o.to(torch.complex128))
+    its = {}
+    for kind in ("s8", "v1", "v2", "v3", "v4"):
+        inst = gens.Instance(kind)
+        op, before = gens.build(inst, s), _launch_count(inst)
+        a = gens.d2ee(kind, op)
+        x, stats = cg.cg_solve(lambda v: a(v, 0.1),
+                               gens.to_layout(kind, b), r2req=1e-10,
+                               maxits=1000)
+        assert _launch_count(inst) == before + 2 * stats.iterations
+        r = sf.d2ee_fast(s64, gens.from_layout(kind, x).to(
+            torch.complex128), 0.1) - b.to(torch.complex128)
+        assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-9
+        its[kind] = stats.iterations
+    assert all(abs(n - its["s8"]) <= 2 for n in its.values()), its

@@ -110,11 +110,15 @@ def test_entry_points_default_to_the_card():
     and on a host without one they raise instead of building CPU
     tensors."""
     from qex_tpu_torch import convert
+    from qex_tpu_torch.bench import stag_generations
     from qex_tpu_torch.mg import coarse, twogrid
     from qex_tpu_torch.ops import group
+    from qex_tpu_torch.physics import stag_pallas, stag_pallas2, stag_pallas3
     from qex_tpu_torch.physics import staggered as st
     u = np.zeros((4, 3, 3) + DIMS, complex)
     lat2 = type(LAT)((2, 2, 2, 2))
+    g_half = t(np.zeros((4, 3, 3) + DIMS[:3] + (DIMS[3] // 2,), complex))
+    s_host = sf.new_fast(st.StaggeredEO(LAT, g_half, g_half))
     builders = [
         lambda **kw: group.unit_gauge(LAT, **kw),
         lambda **kw: convert.gauge_from_reference(u, **kw),
@@ -124,6 +128,10 @@ def test_entry_points_default_to_the_card():
                                       relax_iters=1, **kw).w,
         lambda **kw: coarse.assemble_stencil(lambda v: v, 1, (2, 2),
                                              torch.complex64, **kw).diag,
+        lambda **kw: stag_pallas.new_pallas(s_host, **kw).g_e,
+        lambda **kw: stag_pallas2.new_pallas2(s_host, **kw).g_e,
+        lambda **kw: stag_pallas3.new_pallas3(s_host, **kw).l_e,
+        lambda **kw: stag_generations.setup(lat2, **kw)[1],
     ]
     for build in builders:
         if torch.cuda.is_available():
