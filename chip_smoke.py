@@ -8,9 +8,10 @@ Phases, each printed as one JSON line:
   2. kernel: the 8-term staggered CUDA kernel with float32 links (B1) and
      with bfloat16 links (B1b) against their plain torch version at 24^4
      and 8x4x4x8, and the 16-term HISQ kernel with float32 (B2) and
-     bfloat16 links (B2b) at 24^4, 8x4x4x8 and 4^4, with times, GB/s
-     (624, 336, 1,200 and 624 B/site: each input read once, the output
-     written once), bounds and the share of this card's measured stream
+     bfloat16 links (B2b) at 24^4, 8x4x4x8, 4^4 and 6x3x5x4, with times
+     (CUDA-graph replay, and eager launches beside), GB/s (624, 336,
+     1,200 and 624 B/site: each input read once, the output written
+     once), bounds and the share of this card's measured stream
      bandwidth;
   3. solve: stag_solve.solve at 24^4, m=0.05, r2req 1e-10 (complex64),
      with float32 links and sloppy (bf16 inner iterations, float32
@@ -33,7 +34,8 @@ Phases, each printed as one JSON line:
   9. hisq_solve: BASELINE config 5's solve at 32^3x64: HISQ fattening,
      HisqFermion.solve_multi at masses 0.05-0.4 on B2 with each mass's
      true residual, the sloppy solve at m=0.05 (B2b inner iterations, B2
-     true residuals), and B2/B2b timed at that volume;
+     true residuals), and B2/B2b timed at that volume (graph replay and
+     eager launches);
  10. hmc_hisq: two trajectories of a HISQ theory (Wilson beta=7.0 + one
      HISQ fermion m=0.05) at 24^4 from smoother links (see HISQ_START),
      the second split into fattening forward, fattening pullback, solves
@@ -53,9 +55,9 @@ Phases, each printed as one JSON line:
  16. stag_generations_kernel: the older staggered kernels (v1 B4/B4b, v2
      B5, v3 B6/B6b, v4 B7/B7b with and without compute_only, the split
      modes B8) against their plain twins, both parities, with the
-     d2ee/d2dd of each, at 8x4x4x8 and 32^4; at 32^4 each generation
-     against the 8-term kernel B1/B1b on the same links, and B8's full
-     mode against 1/2 (F - B) of the v3 links;
+     d2ee/d2dd of each, at 8x4x4x8 and 32^4 (v1 also at 6x3x5x4); at
+     32^4 each generation against the 8-term kernel B1/B1b on the same
+     links, and B8's full mode against 1/2 (F - B) of the v3 links;
  17. stag_generations_time: the generation benchmark's A/B at 32^4
      (qex_tpu_torch.bench.stag_generations.ab, every instance, B1/B1b
      beside them), then each instance timed over 200 launches against
@@ -177,6 +179,12 @@ REPLACES = {"stag8": "qex_tpu/physics/stag_pallas_hisq.py:166",
             "v3": "qex_tpu/physics/stag_pallas3.py:123",
             "v4": "qex_tpu/physics/stag_pallas4.py:39",
             "split": "exp_pallas3.py:19"}
+# an odd-extent shape for the kernel checks of B2/B2b (phase 2) and
+# B4/B4b (phase 16): odd Y and Z, an x extent that the 16-term kernel's
+# four-site path does not divide, V = 180 (a bf16 link plane of 360 B is
+# no multiple of 16); its fields come from a generator of their own, so
+# that the main-path phases draw what they drew before the check existed
+ODD_DIMS = (6, 3, 5, 4)
 # phases 16-18: the generation benchmark's volume and CG (exp_s8.py:36)
 GEN_DIMS = (32, 32, 32, 32)
 GEN_MASS = 0.1
@@ -186,6 +194,11 @@ TOL_CG_ITS = 2          # CG iterations within +-2 of B1's
 TOL_WILSON = 1e-11
 # where the chip run keeps the app's checkpoints (gitignored)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def odd_generator():
+    """The generator of the ODD_DIMS checks (see ODD_DIMS)."""
+    return torch.Generator(device="cuda").manual_seed(SEED + 1)
 
 
 def emit(obj: dict) -> None:
@@ -378,18 +391,21 @@ def compare_hop(name: str, op, x, f32_op=None) -> dict:
 
 
 def time_hop(name: str, op, x, sites: int) -> dict:
-    """Kernel, plain twin and fused d2ee times (CUDA events), GB/s by
-    the bytes model and the kernel's bound at the data-sheet peaks."""
+    """Kernel time by CUDA-graph replay ("ms", the device time) and by
+    eager launches, plain twin and fused d2ee times (CUDA events), GB/s
+    by the bytes model and the kernel's bound at the data-sheet peaks."""
     kind, ldt, _ = KERNELS[name]
     hop, plain, d2ee = hop_fns(kind)
     nbytes = BYTES_PER_SITE[(kind, ldt)] * sites
     flops = FLOPS_PER_SITE[kind] * sites
-    k_ms = cuda_time_ms(lambda: hop(op, x, 0), reps=200)
+    k_ms = graph_time_ms(lambda: hop(op, x, 0))
+    eager_ms = cuda_time_ms(lambda: hop(op, x, 0), reps=200)
     p_ms = cuda_time_ms(lambda: plain(op, x, 0), reps=10)
     ee_ms = cuda_time_ms(lambda: d2ee(op, x, 0.05), reps=100)
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     flops_ms = flops / PEAK_F32_FLOPS * 1e3
-    return {"ms": k_ms, "plain_ms": p_ms, "d2ee_ms": ee_ms,
+    return {"ms": k_ms, "ms_eager_launches": eager_ms, "plain_ms": p_ms,
+            "d2ee_ms": ee_ms,
             "gflops": flops / (k_ms * 1e-3) / 1e9,
             "bytes": nbytes, "gbs": nbytes / (k_ms * 1e-3) / 1e9,
             "bound_ms": max(bytes_ms, flops_ms),
@@ -416,18 +432,20 @@ def dims_label(dims) -> str:
 def phase_kernel(gen) -> dict:
     """Each kernel against its plain twin at 24^4 (timed), 8x4x4x8 and,
     for the 16-term kernels, 4^4 (Th = 2, distance-3 wraps at extent
-    4), on expm(0.7 tah) links (HISQ-smeared for the 16-term ones)."""
+    4) and ODD_DIMS, on expm(0.7 tah) links (HISQ-smeared for the
+    16-term ones)."""
     from qex_tpu_torch.lattice import Lattice
     out = {}
     for kind in ("stag8", "hisq16"):
         sizes = [(24, 24, 24, 24), (8, 4, 4, 8)]
         if kind == "hisq16":
-            sizes.append((4, 4, 4, 4))
+            sizes += [(4, 4, 4, 4), ODD_DIMS]
         for i, dims in enumerate(sizes):
             lat = Lattice(dims)
-            build = make_ops(kind, lat, random_links(lat, gen))
+            g = odd_generator() if dims == ODD_DIMS else gen
+            build = make_ops(kind, lat, random_links(lat, g))
             f32_op = build(torch.float32)
-            x = fast_vector(lat, gen)
+            x = fast_vector(lat, g)
             for name, (k, ldt, _c) in KERNELS.items():
                 if k != kind:
                     continue
@@ -1218,10 +1236,11 @@ def compare_generation(name: str, inst, op, x) -> dict:
 
 def phase_stag_generations_kernel(gen) -> dict:
     """Phase 16: every older-generation instance against its twin at
-    8x4x4x8 (the JAX kernel tests' geometry) and 32^4, on expm(0.7 tah)
-    links; at 32^4 also each generation against B1 (f32 links) or B1b
-    (bf16 links) on the same gauge field, and B8's full mode against
-    1/2 (F - B) through B6 on links with the backward terms negated."""
+    8x4x4x8 (the JAX kernel tests' geometry) and 32^4, and v1 (B4/B4b)
+    also at ODD_DIMS, on expm(0.7 tah) links; at 32^4 also each
+    generation against B1 (f32 links) or B1b (bf16 links) on the same
+    gauge field, and B8's full mode against 1/2 (F - B) through B6 on
+    links with the backward terms negated."""
     from qex_tpu_torch.bench import stag_generations as gens
     from qex_tpu_torch.lattice import Lattice
     from qex_tpu_torch.physics import stag_fast as sf
@@ -1231,16 +1250,19 @@ def phase_stag_generations_kernel(gen) -> dict:
     insts = gen_instances()
     out = {name: {} for name in insts}
     res = {"phase": "stag_generations_kernel"}
-    for dims in ((8, 4, 4, 8), GEN_DIMS):
+    for dims in ((8, 4, 4, 8), ODD_DIMS, GEN_DIMS):
         lat = Lattice(dims)
-        s = sf.new_fast(st.new_stag_eo(lat, random_links(lat, gen)))
-        x = fast_vector(lat, gen)
+        g = odd_generator() if dims == ODD_DIMS else gen
+        s = sf.new_fast(st.new_stag_eo(lat, random_links(lat, g)))
+        x = fast_vector(lat, g)
         b1 = {}
         if dims == GEN_DIMS:
             for ldt in (torch.float32, torch.bfloat16):
                 b1[ldt] = sh.dslash_stag8(sh.new_stag8(s, links_dtype=ldt),
                                           x, 0)
         for name, inst in insts.items():
+            if dims == ODD_DIMS and inst.kind != "v1":
+                continue
             op = gens.build(inst, s)
             rec = {"dims": list(dims), "links": str(inst.links_dtype)}
             rec.update(compare_generation(name, inst, op, x))

@@ -40,7 +40,7 @@ import torch
 from .. import _native
 from ..lattice import Lattice
 from . import stag_fast as sf
-from .stag_pallas import _join, _split
+from .stag_pallas import Geometry, _aligned, _join, _split, site_geometry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,12 +107,27 @@ def _check_operand(name: str, v: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# csrc/hisq16_dslash.cu's kSites, kVectorThreads and kSiteThreads
+HISQ16_SITES = 4
+HISQ16_VECTOR_THREADS = 64
+HISQ16_SITE_THREADS = 256
+
+
+def hisq16_geometry(dims, aligned: bool = True) -> Geometry:
+    """Launch grid of the 16-term kernel on the half lattice of ``dims``:
+    the four-site vector path where X is a multiple of 4 and the
+    operands are ``aligned`` to 16 B, else one site a thread."""
+    return site_geometry(dims, HISQ16_SITES, HISQ16_VECTOR_THREADS,
+                         HISQ16_SITE_THREADS, aligned)
+
+
 def _launch(kind: str, links: torch.Tensor, lat: Lattice,
             x: torch.Tensor, parity_out: int, x_fuse: torch.Tensor | None,
             m2: float) -> torch.Tensor:
     """Check the operands and launch ``csrc/<kind>_dslash.cu`` (its
-    float32- or bfloat16-link entry point) on x's CUDA device; raises on
-    operands the kernel does not take and on a failed launch."""
+    float32- or bfloat16-link entry point) on x's CUDA device, the
+    16-term kernel with :func:`hisq16_geometry`; raises on operands the
+    kernel does not take and on a failed launch."""
     if x.device.type != "cuda":
         raise ValueError(f"no {kind} kernel for device {x.device}")
     nterms = 8 if kind == "stag8" else 16
@@ -128,20 +143,24 @@ def _launch(kind: str, links: torch.Tensor, lat: Lattice,
     _check_operand("x", x, shape, x.device)
     if x_fuse is not None:
         _check_operand("x_fuse", x_fuse, shape, x.device)
+    out = torch.empty_like(x)
+    geom = ()
+    if kind == "hisq16":
+        geom = hisq16_geometry(lat.dims,
+                               _aligned(links, x, x_fuse, out)).args()
     lib = _native.load(f"{kind}_dslash.cu")
     fn = getattr(lib, f"qex_{kind}_dslash"
                  + ("_bf16" if links.dtype == torch.bfloat16 else ""))
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * (5 + len(geom)) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(links.data_ptr(), x.data_ptr(),
                  None if x_fuse is None else x_fuse.data_ptr(),
                  out.data_ptr(), float(m2), X, Y, Z, T // 2,
-                 int(parity_out), stream)
+                 int(parity_out), *geom, stream)
     if err != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err}")
     return out

@@ -45,6 +45,11 @@ def _join(v: torch.Tensor) -> torch.Tensor:
     return torch.complex(v[0], v[1])
 
 
+def _aligned(*tensors) -> bool:
+    """Whether every tensor given (None passes) starts on 16 B."""
+    return all(v is None or v.data_ptr() % 16 == 0 for v in tensors)
+
+
 def _check_split(name: str, v: torch.Tensor, shape, device) -> None:
     if v.device != device:
         raise ValueError(f"{name} is on {v.device}, expected {device}")
@@ -135,6 +140,67 @@ def dslash_pallas_plain(s: PallasStagEO, x_split: torch.Tensor,
     return _split(sf.dslash_fast(fs, _join(x_split), parity_out), rdt)
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Launch grid of a site-parallel hop kernel: ``blocks`` blocks of
+    ``threads`` threads, thread i taking the sites [k*i, k*i + k) below
+    ``sites``, through the kernel's k-site vector path when ``vector`` is
+    set and its per-site path (k = 1) otherwise.  No shared memory."""
+
+    sites: int
+    blocks: int
+    threads: int
+    k: int
+    vector: bool
+
+    def args(self) -> tuple:
+        """(blocks, threads, vector) as the C entry points take them."""
+        return (self.blocks, self.threads, int(self.vector))
+
+
+def site_geometry(dims, k: int, vector_threads: int, site_threads: int,
+                  vector: bool) -> Geometry:
+    """Grid of a kernel over the half lattice of ``dims`` (X, Y, Z, T):
+    its vector path, k consecutive sites a thread in blocks of
+    ``vector_threads``, where the caller allows it (``vector``: operands
+    aligned to 16 B, and whatever else the kernel asks) and X % k == 0 (a
+    thread's sites share an x row, and every plane and row stride is a
+    multiple of k); else its per-site path, one site a thread in blocks
+    of ``site_threads``."""
+    X, Y, Z, T = dims
+    sites = X * Y * Z * (T // 2)
+    if vector and X % k == 0:
+        threads = vector_threads
+    else:
+        k, threads = 1, site_threads
+    return Geometry(sites, -(-sites // (k * threads)), threads, k, k > 1)
+
+
+# csrc/stag_v1_dslash.cu's kSites, kVectorThreads and kSiteThreads
+V1_SITES = 2
+V1_VECTOR_THREADS = 64
+V1_SITE_THREADS = 256
+# The vector path reads its links past L1 with an L2 evict-first policy:
+# where a hop's operands fit in L2 (the H100's 50 MiB), the per-site
+# path, which leaves them there from one call to the next, was faster
+# (PERF.md §6).
+V1_VECTOR_MIN_BYTES = 50 * 2 ** 20
+
+
+def v1_geometry(dims, links_dtype: torch.dtype = torch.float32,
+                aligned: bool = True) -> Geometry:
+    """Launch grid of the v1 kernel on the half lattice of ``dims``: the
+    two-site vector path where X is even, the operands are ``aligned``
+    to 16 B and a hop moves at least ``V1_VECTOR_MIN_BYTES`` (A and B
+    links of ``links_dtype``, the spinor and the output), else one site
+    a thread."""
+    X, Y, Z, T = dims
+    item = torch.empty((), dtype=links_dtype).element_size()
+    nbytes = X * Y * Z * (T // 2) * (2 * 72 * item + 48)
+    return site_geometry(dims, V1_SITES, V1_VECTOR_THREADS, V1_SITE_THREADS,
+                         aligned and nbytes >= V1_VECTOR_MIN_BYTES)
+
+
 def dslash_pallas(s: PallasStagEO, x_split: torch.Tensor, parity_out: int
                   ) -> torch.Tensor:
     """Apply the hopping term; x_split is (2, 3, Th, Z, Y*X) on the
@@ -151,10 +217,12 @@ def dslash_pallas(s: PallasStagEO, x_split: torch.Tensor, parity_out: int
     a = s.g_e if parity_out == 0 else s.g_o
     b = s.g_o if parity_out == 0 else s.g_e
     X, Y, Z, T = s.lat.dims
+    geom = v1_geometry(s.lat.dims, a.dtype, _aligned(a, b, x_split))
     out = _launch_split("stag_v1_dslash.cu", "qex_stag_v1_dslash", (a, b),
                         (2, 4, 3, 3, T // 2, Z, Y * X),
                         (torch.float32, torch.bfloat16), x_split,
-                        split_shape(s.lat), s.lat, parity_out)
+                        split_shape(s.lat), s.lat, parity_out,
+                        *geom.args())
     if a.dtype == torch.bfloat16:
         dslash_pallas.launches_bf16 += 1
     else:

@@ -150,12 +150,16 @@ def _hisq16(lat, gen, links_dtype=torch.float32):
 @pytest.mark.gpu
 @pytest.mark.parametrize("links", ["f32", "bf16"])
 @pytest.mark.parametrize("dims", [(4, 4, 4, 4), (8, 4, 4, 8),
-                                  (24, 24, 24, 24)])
+                                  (24, 24, 24, 24), (6, 3, 5, 4),
+                                  (8, 3, 5, 4)])
 def test_hisq16_kernel_matches_plain_on_card(cuda_device, dims, links):
     """Kernels B2 (f32 links) and B2b (bf16 links) against the plain
     16-term hop on the same links: both parities and the fused d2ee and
     d2dd epilogues.  4^4 holds Th = 2 and the distance-3 wraps at
-    extent 4."""
+    extent 4; (6, 3, 5, 4) odd Y and Z, an x extent that is no multiple
+    of the sites a thread takes (the per-site path) and V = 180 (a bf16
+    plane of 360 B, not a multiple of 16); (8, 3, 5, 4) the vector path
+    with odd Y and Z."""
     lat = Lattice(dims)
     gen = torch.Generator(device=cuda_device).manual_seed(8)
     ldt = torch.float32 if links == "f32" else torch.bfloat16
@@ -177,6 +181,28 @@ def test_hisq16_kernel_matches_plain_on_card(cuda_device, dims, links):
     torch.cuda.synchronize()
     assert _rel2(got, -hop(hop(x, 0), 1)) < TOL
     assert getattr(sh.dslash_hisq16, counter) == before + 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("links", ["f32", "bf16"])
+def test_hisq16_kernel_unaligned_operands_on_card(cuda_device, links):
+    """A spinor that starts 8 B past a 16-B boundary takes the kernel's
+    per-site path, with the same result."""
+    lat = Lattice((8, 4, 4, 8))
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    ldt = torch.float32 if links == "f32" else torch.bfloat16
+    p16 = _hisq16(lat, gen, ldt)
+    shape = (3, 4, 4, 32)
+    buf = torch.randn(1 + 3 * 4 * 4 * 32, dtype=torch.complex64,
+                      generator=gen, device=cuda_device)
+    x = buf[1:].view(shape)
+    assert x.data_ptr() % 16 == 8
+    got = sh.dslash_hisq16(p16, x, 0, x_fuse=x, m2=0.09)
+    torch.cuda.synchronize()
+    ref = sh.dslash_hisq16_plain(p16, x, 0, x_fuse=x, m2=0.09)
+    assert _rel2(got, ref) < TOL
+    assert _rel2(got, sh.dslash_hisq16(p16, x.clone(), 0, x_fuse=x.clone(),
+                                       m2=0.09)) < TOL
 
 
 @pytest.mark.gpu
@@ -377,6 +403,40 @@ def test_stag_generations_match_plain_on_card(cuda_device, dims, links):
         got = gens.d2ee(inst.kind, op)(v, 0.3)
         torch.cuda.synchronize()
         assert _rel2(got, 0.09 * v - plain(plain(v, 1), 0)) < TOL, inst.label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("links", ["f32", "bf16"])
+@pytest.mark.parametrize("dims", [(8, 4, 4, 8), (6, 3, 5, 4), (5, 4, 4, 6),
+                                  (24, 24, 24, 24), (24, 23, 25, 24)])
+def test_v1_kernel_matches_plain_on_card(cuda_device, dims, links):
+    """Kernels B4 (f32 links) and B4b (bf16 links) against the plain v1
+    hop: both parities and d2ee, then with a spinor 4 B past a 16-B
+    boundary (the per-site path).  The small shapes take the per-site
+    path ((6, 3, 5, 4): odd Y and Z, V = 180; (5, 4, 4, 6): an odd x
+    extent); 24^4 and (24, 23, 25, 24), odd Y and Z, the two-site
+    path."""
+    from qex_tpu_torch.physics import stag_pallas as sp1
+    lat = Lattice(dims)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    ldt = torch.float32 if links == "f32" else torch.bfloat16
+    op = sp1.new_pallas(_fast_ops(lat, gen), ldt, device=cuda_device)
+    shape = sp1.split_shape(lat)
+    buf = torch.randn(1 + torch.Size(shape).numel(), generator=gen,
+                      device=cuda_device)
+    counter = "launches" if links == "f32" else "launches_bf16"
+    before = getattr(sp1.dslash_pallas, counter)
+    for x in (buf[:-1].view(shape), buf[1:].view(shape)):
+        for parity in (0, 1):
+            got = sp1.dslash_pallas(op, x, parity)
+            torch.cuda.synchronize()
+            assert _rel2(got, sp1.dslash_pallas_plain(op, x, parity)) < TOL
+    plain = lambda v, par: sp1.dslash_pallas_plain(op, v, par)
+    x = buf[:-1].view(shape)
+    got = sp1.d2ee_pallas(op, x, 0.3)
+    torch.cuda.synchronize()
+    assert _rel2(got, 0.09 * x - plain(plain(x, 1), 0)) < TOL
+    assert getattr(sp1.dslash_pallas, counter) == before + 6
 
 
 @pytest.mark.gpu
