@@ -63,9 +63,35 @@ Phases, each printed as one JSON line:
      beside them), then each instance timed over 200 launches against
      its plain twin at 24^4 and 32^4;
  18. stag_generations_cg: solvers.cg.cg_solve at 32^4, m=0.1, r2req
-     1e-10, through d2ee of v1, v2, v3, v4 and B1.
+     1e-10, through d2ee of v1, v2, v3, v4 and B1;
+ then the pure-gauge path, which launches none of B1-B8:
+ 19. puregauge_accept: the chain of exp_accept_cpu.py through
+     hmc.hmc_step at 8^3x16 (Wilson beta 6.0, 2MN, tau 1, cold start,
+     complex64 fields, float64 H): 30 forced-accept warm-ups at 10
+     steps, 5 Metropolis trajectories at 20 steps, then ACCEPT_N_MEAS
+     measured ones; its plaquette mean must lie within ACCEPT_Z combined
+     blocked-jackknife errors of ACCEPT_CPU.json's float64 chain, its
+     <exp(-dH)> within ACCEPT_Z blocked-jackknife errors of 1, and its
+     acceptance be at least ACCEPT_MIN;
+ 20. puregauge_config3: BASELINE config 3 (16^3x32, Wilson beta 6.0,
+     2MN, tau 1): 30 forced warm-ups at 10 steps, then 4 Metropolis
+     trajectories at each of 20, 24, 32 and 48 steps, with dH, the
+     acceptance, s/trajectory and peak memory per step count, each
+     beside the dH of a complex128 trajectory from the same (u, p); and
+     the time and peak memory of one Symanzik (rect) force there;
+ 21. flow: BASELINE config 2, 50 Wilson-flow RK3 steps of 0.02 at 16^4
+     from expm(0.3 tah) links, measured once at the end; and a 5-step
+     4^4 flow on the card against the same flow on the host in
+     complex128 (links, t^2 E_clover and t^2 E_plaq to TOL_FLOW);
+ 22. apps_gauge: puregauge_hmc (8^4 Symanzik, PG_APP_NTRAJ trajectories
+     of which the first PG_APP_WARMUP are forced, --save; at least one
+     after the warm-up must be accepted),
+     gauge_flow --load of that checkpoint with both committed 8^4 flow
+     decks, and staghmc_spv for one trajectory on a copy of the config-4
+     deck at 8^4 with a rect gauge action and the FGI gauge integrator.
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10, 13, 14, 15, the A/B of 17, 18) and read just after it.  Then
+7, 9, 10, 13, 14, 15, the A/B of 17, 18-22) and read just after it; 19-21
+and the pure-gauge apps of 22 must launch no kernel, staghmc_spv B1.  Then
 the card line, the kernels summary and, last, the ok line.  Any failed
 check raises, so the script exits non-zero and prints no ok line;
 without a CUDA device it exits non-zero at once.
@@ -194,6 +220,19 @@ TOL_CG_ITS = 2          # CG iterations within +-2 of B1's
 TOL_WILSON = 1e-11
 # where the chip run keeps the app's checkpoints (gitignored)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+ACCEPT_N_MEAS = 100     # measured trajectories of the accepting chain
+ACCEPT_CPU_BLOCK = 5    # blocks of the 40-point float64 series
+ACCEPT_MIN_BLOCKS = 20
+ACCEPT_Z = 3.0          # combined blocked-jackknife errors; the same
+#                         bound holds <exp(-dH)> to 1 (Creutz's equality)
+ACCEPT_MIN = 0.6
+CONFIG3_NSTEPS = (20, 24, 32, 48)
+# apps_gauge's puregauge_hmc from a cold start at 8^4 (Symanzik beta 6):
+# the plaquette relaxes from 1 to ~0.75 in ~6 trajectories; at 30 steps
+# the equilibrium dH is ~0.1-0.3
+PG_APP_STEPS, PG_APP_WARMUP, PG_APP_NTRAJ = 30, 6, 10
+TOL_FLOW = 1e-5         # relative, card complex64 against host complex128:
+#                         links, t^2 E_clover and t^2 E_plaq
 
 
 def odd_generator():
@@ -1026,8 +1065,8 @@ def wilson_true_r2(lat, u, m: float, bc: str, x, b) -> float:
 def phase_wilson_solve(gen) -> dict:
     """exp_wilson.py's solve through wilson.solve_eo's routing:
     24^3x32, m=0.1, bc pppa, r2req 1e-12, maxits 1000, 3 restarts, on
-    seeded expm(0.7 tah) links (not Haar links: random_su is ROADMAP
-    A4), float32 links (B3) and sloppy (B3b inner iterations)."""
+    seeded expm(0.7 tah) links (not Haar links, as every phase here),
+    float32 links (B3) and sloppy (B3b inner iterations)."""
     from qex_tpu_torch.lattice import Lattice
     from qex_tpu_torch.physics import wilson as wl
     from qex_tpu_torch.solvers.base import SolverParams
@@ -1420,6 +1459,319 @@ def phase_stag_generations_cg(gen) -> dict:
     return res
 
 
+# --- the pure-gauge path ----------------------------------------------------
+
+def no_launches(tag: str) -> dict:
+    """The launch counts since the last reset; raises if any kernel was
+    launched (the pure-gauge path runs no hop kernel)."""
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: kernel launches {launches}")
+    return launches
+
+
+def wilson_hmc(lat, beta: float = 6.0):
+    from qex_tpu_torch.gauge import action as ga
+    from qex_tpu_torch.hmc import integrators
+    c = ga.wilson(beta)
+    return (functools.partial(ga.full_action, c, lat),
+            functools.partial(ga.gauge_force, c, lat),
+            integrators.get_integrator("2MN"))
+
+
+def phase_puregauge_accept(gen) -> dict:
+    from qex_tpu_torch.gauge import loops
+    from qex_tpu_torch.hmc import hmc
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.ops import group
+    from qex_tpu_torch.utils import resample
+    lat = Lattice((8, 8, 8, 16))
+    act, frc, scheme = wilson_hmc(lat)
+    u = group.unit_gauge(lat, torch.complex64, "cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(30):
+        u, _st = hmc.hmc_step(gen, u, act, frc, scheme, 1.0, 10,
+                              always_accept=True)
+    for _ in range(5):
+        u, _st = hmc.hmc_step(gen, u, act, frc, scheme, 1.0, 20)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plaqs, dhs, accs = [], [], []
+    for _ in range(ACCEPT_N_MEAS):
+        u, st = hmc.hmc_step(gen, u, act, frc, scheme, 1.0, 20)
+        plaqs.append(float(loops.plaquette(lat, u)))
+        dhs.append(st.dH)
+        accs.append(st.accepted)
+    t2 = time.perf_counter()
+    launches = no_launches("puregauge_accept")
+    cpu = json.loads((ROOT / "ACCEPT_CPU.json").read_text())
+    cpu_mean, cpu_err = resample.jackknife(cpu["plaq_series"],
+                                           block=ACCEPT_CPU_BLOCK)
+    block = ACCEPT_N_MEAS // ACCEPT_MIN_BLOCKS
+    mean, err = resample.jackknife(plaqs, block=block)
+    z = abs(mean - cpu_mean) / math.hypot(err, cpu_err)
+    acc = sum(accs) / len(accs)
+    # Creutz's equality <exp(-dH)> = 1: a biased MD breaks it even where
+    # it accepts
+    creutz, creutz_err = resample.jackknife([math.exp(-d) for d in dhs],
+                                            block=block)
+    creutz_z = abs(creutz - 1.0) / creutz_err
+    cpu_creutz = resample.jackknife([math.exp(-d) for d in cpu["dH"]],
+                                    block=ACCEPT_CPU_BLOCK)
+    res = {"phase": "puregauge_accept", "dims": list(lat.dims),
+           "n_meas": ACCEPT_N_MEAS, "acceptance": acc,
+           "plaq_mean": mean, "plaq_err": err, "block": block,
+           "n_blocks": ACCEPT_N_MEAS // block,
+           "tau_int": resample.autocorrelation_time(plaqs),
+           "cpu_f64_plaq_mean": cpu_mean, "cpu_f64_plaq_err": cpu_err,
+           "cpu_block": ACCEPT_CPU_BLOCK,
+           "cpu_n_blocks": len(cpu["plaq_series"]) // ACCEPT_CPU_BLOCK,
+           "cpu_acceptance": cpu["acceptance"], "z": z,
+           "dH_mean": statistics.fmean(dhs),
+           "dH_rms": math.sqrt(statistics.fmean(d * d for d in dhs)),
+           "exp_minus_dH_mean": creutz, "exp_minus_dH_err": creutz_err,
+           "exp_minus_dH_z": creutz_z,
+           "cpu_f64_exp_minus_dH": list(cpu_creutz),
+           "seconds_warmup": t1 - t0,
+           "seconds_per_traj_20_steps": (t2 - t1) / ACCEPT_N_MEAS,
+           "seconds": t2 - t0, "kernel_launches": launches}
+    emit(res)
+    if not all(math.isfinite(x) for x in plaqs + dhs):
+        raise AssertionError("puregauge_accept: non-finite plaquette or dH")
+    if not z <= ACCEPT_Z:
+        raise AssertionError(f"puregauge_accept: plaquette {mean} +- {err} "
+                             f"is {z:.2f} sigma from the float64 chain's "
+                             f"{cpu_mean} +- {cpu_err}")
+    if not creutz_z <= ACCEPT_Z:
+        raise AssertionError(f"puregauge_accept: <exp(-dH)> {creutz} +- "
+                             f"{creutz_err} is {creutz_z:.2f} sigma from 1")
+    if not acc >= ACCEPT_MIN:
+        raise AssertionError(f"puregauge_accept: acceptance {acc}")
+    return res
+
+
+def phase_puregauge_config3(gen) -> dict:
+    from qex_tpu_torch.gauge import action as ga
+    from qex_tpu_torch.gauge import loops
+    from qex_tpu_torch.hmc import hmc
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.ops import group
+    lat = Lattice((16, 16, 16, 32))
+    act, frc, scheme = wilson_hmc(lat)
+    u = group.unit_gauge(lat, torch.complex64, "cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(30):
+        u, _st = hmc.hmc_step(gen, u, act, frc, scheme, 1.0, 10,
+                              always_accept=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rows = []
+    for ns in CONFIG3_NSTEPS:
+        torch.cuda.reset_peak_memory_stats()
+        dhs, accs, dhs64, secs = [], [], [], 0.0
+        for _ in range(4):
+            # momenta and uniform drawn once, in float64: the chain's
+            # float32 trajectory and a float64 control from the same
+            # (u, p), which the chain does not follow
+            u64 = u.to(torch.complex128)
+            p64 = hmc.draw_momenta(gen, u64)
+            r = hmc.draw_uniform(gen)
+            (u, st), s32 = timed_once_s(lambda: hmc.hmc_step_from(
+                u, p64.to(torch.complex64), r, act, frc, scheme, 1.0, ns))
+            secs += s32
+            dhs.append(st.dH)
+            accs.append(st.accepted)
+            _, st64 = hmc.hmc_step_from(u64, p64, r, act, frc, scheme, 1.0,
+                                        ns)
+            dhs64.append(st64.dH)
+        if not all(math.isfinite(d) for d in dhs + dhs64):
+            raise AssertionError(f"puregauge_config3: dH {dhs} {dhs64}")
+        rows.append({"nsteps": ns, "dH": dhs,
+                     "dH_mean": statistics.fmean(dhs),
+                     "dH_rms": math.sqrt(statistics.fmean(
+                         d * d for d in dhs)),
+                     "acceptance": sum(accs) / 4,
+                     "seconds_per_traj": secs / 4,
+                     "peak_mem_gib":
+                         torch.cuda.max_memory_allocated() / 2**30,
+                     "dH_f64_md": dhs64,
+                     "dH_f64_md_rms": math.sqrt(statistics.fmean(
+                         d * d for d in dhs64)),
+                     "dH_f32_minus_f64_md_max": max(
+                         abs(a - b) for a, b in zip(dhs, dhs64))})
+    plaq = float(loops.plaquette(lat, u))
+    launches = no_launches("puregauge_config3")
+    rect = functools.partial(ga.gauge_force, ga.symanzik(6.0), lat, u)
+    _f, rect_first_s = timed_once_s(rect)     # includes torch.func set-up
+    del _f
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    f, rect_s = timed_once_s(rect)
+    rect_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if not bool(torch.isfinite(torch.view_as_real(f)).all()):
+        raise AssertionError("puregauge_config3: rect force not finite")
+    del f
+    res = {"phase": "puregauge_config3", "dims": list(lat.dims),
+           "seconds_warmup_30x10": warm_s, "by_nsteps": rows,
+           "plaquette": plaq, "links_gib": u.numel() * 8 / 2**30,
+           "rect_force_seconds": rect_s,
+           "rect_force_first_call_seconds": rect_first_s,
+           "rect_force_peak_extra_gib": rect_peak,
+           "kernel_launches": launches}
+    emit(res)
+    if not 0.0 < plaq < 1.0:
+        raise AssertionError(f"puregauge_config3: plaquette {plaq}")
+    return res
+
+
+def phase_flow(gen) -> dict:
+    from qex_tpu_torch.gauge import flow as gf
+    from qex_tpu_torch.gauge import loops
+    from qex_tpu_torch.lattice import Lattice
+    lat = Lattice((16, 16, 16, 16))
+    c = gf.wilson_flow_coeffs(lat.nc)
+    u = random_links(lat, gen, scale=0.3)
+    plaq0 = float(loops.plaquette(lat, u))
+    gf.flow(c, lat, u, 0.02, 1, measure=False)            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    v, _ = gf.flow(c, lat, u, 0.02, 50, measure=False)
+    m = gf.measure_flow(lat, v, 0.02 * 50)
+    t2e = float(m.t2e_clover)
+    secs = time.perf_counter() - t0
+    plaq1 = float(m.plaq)
+    launches = no_launches("flow")
+    # the same 5-step flow at 4^4 on the card and on the host
+    small = Lattice((4, 4, 4, 4))
+    w = random_links(small, gen, dtype=torch.complex128, scale=0.3)
+    wc, mc = gf.flow(c, small, w.to(torch.complex64), 0.02, 5)
+    wh, mh = gf.flow(c, small, w.cpu(), 0.02, 5)
+    dev = {"links": float(torch.linalg.vector_norm(wc.cpu() - wh)
+                          / torch.linalg.vector_norm(wh)),
+           "t2e_clover": float((mc.t2e_clover.cpu() - mh.t2e_clover).abs()
+                               .max() / mh.t2e_clover.abs().max()),
+           "t2e_plaq": float((mc.t2e_plaq.cpu() - mh.t2e_plaq).abs()
+                             .max() / mh.t2e_plaq.abs().max())}
+    res = {"phase": "flow", "dims": list(lat.dims), "eps": 0.02,
+           "steps": 50, "seconds": secs, "t2e_clover": t2e,
+           "t2e_plaq": float(m.t2e_plaq), "topo_q": float(m.topo_q),
+           "plaquette_before": plaq0, "plaquette_after": plaq1,
+           "card_vs_host_4c4_rel_dev": dev, "kernel_launches": launches}
+    emit(res)
+    if not plaq1 > plaq0:
+        raise AssertionError(f"flow: plaquette {plaq0} -> {plaq1}")
+    if not (math.isfinite(t2e) and t2e > 0.0):
+        raise AssertionError(f"flow: t2E_clover {t2e}")
+    for k in ("links", "t2e_clover", "t2e_plaq"):
+        x = dev[k]
+        if not x <= TOL_FLOW:
+            raise AssertionError(f"flow: card and host {k} differ by {x}")
+    return res
+
+
+def _run_main(main_fn, argv: list[str]) -> list[str]:
+    """Run an app's main in this process; echo and return its lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        print("  | " + ln, flush=True)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exited {rc}")
+    return lines
+
+
+def _finite_numbers(lines: list[str], tag: str, n: int) -> list[list[float]]:
+    """The numeric words of the ``n`` lines starting with ``tag``;
+    raises on a missing line or a non-finite number."""
+    rows = []
+    for ln in lines:
+        if ln.startswith(tag):
+            nums = []
+            for w in ln.replace("(", " ").split():
+                try:
+                    nums.append(float(w))
+                except ValueError:
+                    continue
+            if not all(math.isfinite(x) for x in nums):
+                raise AssertionError(f"non-finite number in {ln!r}")
+            rows.append(nums)
+    if len(rows) != n:
+        raise AssertionError(f"{len(rows)} {tag!r} lines, expected {n}")
+    return rows
+
+
+def phase_apps_gauge() -> dict:
+    import tempfile
+    import xml.etree.ElementTree as ET
+    from qex_tpu_torch.apps import gauge_flow, puregauge_hmc, staghmc_spv
+    decks = ROOT / "qex_tpu_torch" / "apps" / "decks"
+    res = {"phase": "apps_gauge"}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ckpt = str(Path(tmp) / "puregauge_8.npz")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        lines = _run_main(puregauge_hmc.main, [
+            "--lattice", "8", "8", "8", "8", "--c1", "-0.0833333",
+            "--steps", str(PG_APP_STEPS), "--warmup", str(PG_APP_WARMUP),
+            "--ntraj", str(PG_APP_NTRAJ), "--save", ckpt])
+        res["puregauge_hmc_s"] = time.perf_counter() - t0
+        trajs = _finite_numbers(lines, "traj ", PG_APP_NTRAJ)
+        res["puregauge_hmc_traj"] = trajs
+        accepted = [ln for ln in lines if ln.startswith("traj ")
+                    and " ACCEPT " in ln and "[warmup]" not in ln]
+        res["puregauge_hmc_accepted_after_warmup"] = len(accepted)
+        if not accepted:
+            raise AssertionError("apps_gauge: puregauge_hmc accepted no "
+                                 "trajectory after its warm-up")
+        flows = {}
+        for deck in ("flow_wilson_8.xml", "flow_rect_8.xml"):
+            t0 = time.perf_counter()
+            lines = _run_main(gauge_flow.main, [
+                "--xml", str(decks / deck), "--load", ckpt])
+            rows = _finite_numbers(lines, "FLOW ", 9)
+            flows[deck] = {"seconds": time.perf_counter() - t0,
+                           "last": rows[-1]}
+        res["gauge_flow"] = flows
+        res["kernel_launches_pure_gauge"] = no_launches("apps_gauge")
+        tree = ET.parse(decks / "config4_24.xml")
+        root = tree.getroot()
+        for path, val in (("action/geom/Ns", "8"), ("action/geom/Nt", "8"),
+                          ("action/gauge/gauge_act", "rect"),
+                          ("hmc/gauge_int_alg", "FGI")):
+            root.find(path).text = val
+        rect = ET.SubElement(root.find("action/gauge"), "rect")
+        ET.SubElement(rect, "c1").text = repr(-1.0 / 12.0)
+        deck = str(Path(tmp) / "config4_8_rect_fgi.xml")
+        tree.write(deck)
+        reset_counts()
+        t0 = time.perf_counter()
+        lines = _run_main(staghmc_spv.main, ["--xml", deck, "--ntraj", "1"])
+        res["staghmc_spv_rect_fgi_s"] = time.perf_counter() - t0
+        launches = read_counts()
+        res["staghmc_spv_kernel_launches"] = launches
+        for tag in ("Begin H", "End H", "MEASplaq "):
+            _finite_numbers(lines, tag, 1)
+        res["staghmc_spv_dH"] = _finite_numbers(
+            [ln for ln in lines if ln.startswith(("ACCEPT", "REJECT"))],
+            "", 1)[0][0]
+        if launches["stag8_dslash"] <= 0:
+            raise AssertionError("apps_gauge: staghmc_spv never launched B1")
+        others = {k: v for k, v in launches.items()
+                  if k != "stag8_dslash" and v}
+        if others:
+            raise AssertionError(f"apps_gauge: staghmc_spv launched {others}")
+    emit(res)
+    return res
+
+
 def profiled(tag: str, fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device kernel
     count and busy time (sum of kernel durations; one stream, so they
@@ -1522,6 +1874,10 @@ def main() -> int:
     gen_err = phase_stag_generations_kernel(gen)
     gtime = phase_stag_generations_time(gen)
     gcg = phase_stag_generations_cg(gen)
+    phase_puregauge_accept(gen)
+    phase_puregauge_config3(gen)
+    phase_flow(gen)
+    phase_apps_gauge()
     for name, err in gen_err.items():
         kern[name] = dict(gtime[name], max_abs_err=err)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})

@@ -2,8 +2,9 @@
 ``qex_tpu.apps.staghmc_spv``).
 
 nHYP-smeared staggered fermions (Nf, mass) + num_pv Pauli-Villars bosons
-(mass_pv), an unsmeared and an optional smeared Wilson gauge action,
-per-field integrators and step counts, a Metropolis warm-up
+(mass_pv), an unsmeared and an optional smeared gauge action (Wilson,
+rect or adjoint), per-field integrators (force-gradient schemes
+included) and step counts, a Metropolis warm-up
 (no_metropolis_until), measurement lines, solver and reversibility
 checks, and checkpoints.
 
@@ -43,16 +44,9 @@ def seed_of(*words: int) -> int:
     return int(state[0] >> np.uint64(1))
 
 
-def _generator(device: torch.device, *words: int) -> torch.Generator:
+def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded from a tuple of words."""
     return torch.Generator(device=device).manual_seed(seed_of(*words))
-
-
-def _check_scheme(name: str) -> None:
-    from qex_tpu_torch.hmc.integrators import get_integrator
-    if any(st[0] == "FG" for st in get_integrator(name).steps):
-        raise NotImplementedError(
-            f"integrator {name!r} has force-gradient steps, which are not "
-            "ported yet (ROADMAP A4)")
 
 
 def build_theory(cfg, lat):
@@ -64,22 +58,23 @@ def build_theory(cfg, lat):
                                            LatticeFieldTheory)
     from qex_tpu_torch.solvers.base import SolverParams
 
-    def coeffs(act, beta):
+    def coeffs(act, beta, c1, adj_fac):
         if act.lower() == "wilson":
             return ga.wilson(beta)
-        if act.lower() in ("rect", "adjoint"):
-            raise NotImplementedError(
-                f"gauge action {act!r} is not ported yet (ROADMAP A4)")
+        if act.lower() == "rect":
+            return ga.gauge_act_rect(beta, c1)
+        if act.lower() == "adjoint":
+            return ga.adjoint_action(beta, adj_fac)
         raise ValueError(f"unknown gauge action {act!r}")
 
-    _check_scheme(cfg.gauge_int_alg)
-    gauges = [GaugeActionSpec(coeffs(cfg.gauge_act, cfg.beta),
+    gauges = [GaugeActionSpec(coeffs(cfg.gauge_act, cfg.beta, cfg.c1,
+                                     cfg.adj_fac),
                               steps=cfg.g_steps, scheme=cfg.gauge_int_alg,
                               smeared=False)]
     if cfg.sg_opt:
-        _check_scheme(cfg.smeared_gauge_int_alg)
         gauges.append(GaugeActionSpec(
-            coeffs(cfg.smeared_gauge_act, cfg.sm_beta),
+            coeffs(cfg.smeared_gauge_act, cfg.sm_beta, cfg.sm_c1,
+                   cfg.sm_adj_fac),
             steps=cfg.sg_steps, scheme=cfg.smeared_gauge_int_alg,
             smeared=True))
 
@@ -92,14 +87,11 @@ def build_theory(cfg, lat):
             raise NotImplementedError(
                 f"Nf={cfg.nf} needs a rooted fermion, which is not ported "
                 "yet (ROADMAP A6)")
-        _check_scheme(cfg.ferm_int_alg)
         for _ in range(cfg.nf // 4):
             fermions.append(FermionSpec("fermion", cfg.mass,
                                         steps=cfg.f_steps,
                                         scheme=cfg.ferm_int_alg,
                                         smeared=matter_smeared))
-    if cfg.num_pv > 0:
-        _check_scheme(cfg.pv_int_alg)
     for _ in range(cfg.num_pv):
         fermions.append(FermionSpec("boson", cfg.mass_pv,
                                     steps=cfg.pv_steps,
@@ -126,7 +118,7 @@ def hot_start(lat, dtype, device, seed: int, scale: float = 0.7
     """expm(scale * random_tah) per link from a generator seeded by
     ``seed``."""
     from qex_tpu_torch.ops import group, linalg
-    gen = _generator(device, seed)
+    gen = seeded_generator(device, seed)
     return torch.stack([linalg.expm(scale * group.random_tah(
         gen, lat.dims, lat.nc, dtype)) for _ in range(lat.nd)])
 
@@ -221,21 +213,22 @@ def main(argv=None) -> int:
     for traj in range(start_traj, start_traj + ntraj):
         t0 = time.time()
         warmup = traj < cfg.no_metropolis_until
-        u, st = theory.hmc_step(_generator(device, cfg.serial_seed, traj),
-                                u, always_accept=warmup)
+        u, st = theory.hmc_step(
+            seeded_generator(device, cfg.serial_seed, traj), u,
+            always_accept=warmup)
         n_acc += int(st.accepted and not warmup)
         print(f"Begin H: {st.h_old:.15g}")
         print(f"End H: {st.h_new:.15g}")
         print(f"{'ACCEPT' if st.accepted else 'REJECT'}: dH {st.dH:.6g} "
               f"({time.time() - t0:.2f} s){' [warmup]' if warmup else ''}")
         if cfg.check_solvers:
-            report = theory.solver_report(
-                _generator(device, cfg.serial_seed, traj, _SOLVER_WORD), u)
+            report = theory.solver_report(seeded_generator(
+                device, cfg.serial_seed, traj, _SOLVER_WORD), u)
             for name, (its, rel) in report.items():
                 print(f"SOLVER {name}: its {int(its)} relr2 {rel:.4g}")
         if cfg.rev_check_freq and (traj + 1) % cfg.rev_check_freq == 0:
-            rev = theory.reverse_check(
-                _generator(device, cfg.serial_seed, traj, _REVCHECK_WORD), u)
+            rev = theory.reverse_check(seeded_generator(
+                device, cfg.serial_seed, traj, _REVCHECK_WORD), u)
             print(f"Reversed H: {rev['h2']:.15g}")
             print(f"REVCHECK dHrev {rev['dH_rev']:.6g} "
                   f"udev2 {rev['u_dev2']:.6g} pdev2 {rev['p_dev2']:.6g}")

@@ -1,8 +1,11 @@
-"""Plaquette and Polyakov-loop observables (port of ``plaq_field``,
-``plaquette``, ``plaquette_by_plane`` and ``polyakov_loop`` from
-``qex_tpu.gauge.loops``).  Site sums accumulate in float64."""
+"""Gauge loop observables (port of ``qex_tpu.gauge.loops``): plaquette,
+Polyakov loop, Wilson lines, the clover field strength, the energy
+density in two discretisations and the topological charge.  Site sums
+accumulate in float64."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -65,3 +68,74 @@ def polyakov_loop(lat: Lattice, u: torch.Tensor, mu: int | None = None
             p = linalg.mul(p, shift(u[mu], mu, +1, nd, dist=k))
     return torch.sum(linalg.trace(p), dtype=torch.complex128) / (
         nc * lat.volume)
+
+
+def wilson_line(lat: Lattice, u: torch.Tensor, path, engine=None
+                ) -> torch.Tensor:
+    """Average Re tr / nc of the Wilson line along ``path`` (entries
+    +-(mu+1), QEX ``wline``); pass a shared ``engine`` to reuse
+    sub-segments across lines."""
+    from .wline import PathEngine
+    eng = engine if engine is not None else PathEngine(lat, u)
+    return eng.loop_trace(path)
+
+
+def clover_fmunu(u: torch.Tensor, mu: int, nu: int, nd: int,
+                 engine=None) -> torch.Tensor:
+    """Clover field strength F_{mu nu}: the traceless anti-hermitian part
+    of the mean of the four plaquette leaves around x."""
+    from .wline import PathEngine
+    if engine is None:
+        engine = PathEngine(Lattice(u.shape[-nd:], nc=u.shape[1]), u)
+    c = 0.25 * engine.clover_leaves(mu, nu)
+    f = 0.5 * (c - linalg.adj(c))
+    tr = linalg.trace(f) / f.shape[0]
+    return f - tr * linalg.eye_like(f)
+
+
+def energy_density_clover(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
+    """Clover energy density E = -1/2 sum tr F^2 / V = sum |F|^2 / V over
+    the planes mu < nu (QEX densityE), float64."""
+    from .wline import PathEngine
+    nd = lat.nd
+    eng = PathEngine(lat, u)
+    total = 0.0
+    for mu in range(nd):
+        for nu in range(mu + 1, nd):
+            f = clover_fmunu(u, mu, nu, nd, engine=eng)
+            total = total + linalg.norm2(f, dtype=torch.float64)
+    return total / lat.volume
+
+
+def energy_density_plaq(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
+    """Plaquette energy density E = 2 sum_planes (nc - retr P) / V,
+    float64."""
+    nd, nc = lat.nd, lat.nc
+    total = 0.0
+    for mu in range(nd):
+        for nu in range(mu + 1, nd):
+            total = total + torch.sum(
+                nc - linalg.re_trace(plaq_field(u, mu, nu, nd)),
+                dtype=torch.float64)
+    return 2.0 * total / lat.volume
+
+
+def topo_charge_clover(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
+    """Clover topological charge
+    Q = 1/(32 pi^2) sum_x eps_{mu nu rho sigma} tr F_{mu nu} F_{rho sigma}
+    (QEX topoQ), 4D only, float64.  The 24 terms of the epsilon sum are
+    8 copies of the three plane pairings (01)(23), -(02)(13), (03)(12)."""
+    from .wline import PathEngine
+    nd = lat.nd
+    if nd != 4:
+        raise ValueError("topological charge requires nd=4")
+    eng = PathEngine(lat, u)
+    fs = {(mu, nu): clover_fmunu(u, mu, nu, nd, engine=eng)
+          for mu in range(nd) for nu in range(mu + 1, nd)}
+
+    def tr_ff(a, b):
+        return torch.sum(linalg.re_trace(linalg.mul(fs[a], fs[b])),
+                         dtype=torch.float64)
+
+    q = tr_ff((0, 1), (2, 3)) - tr_ff((0, 2), (1, 3)) + tr_ff((0, 3), (1, 2))
+    return q / (4.0 * math.pi ** 2)

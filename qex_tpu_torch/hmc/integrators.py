@@ -1,23 +1,29 @@
-"""Symplectic molecular-dynamics integrator tables (copy of the tables
-and ``get_integrator`` of ``qex_tpu.hmc.integrators``).
+"""Symplectic molecular-dynamics integrators (port of
+``qex_tpu.hmc.integrators``: a copy of the tables and
+``get_integrator``, and ``fg_force``, ``_merge`` and ``integrate``).
 
-The JAX module imports jax at the top, so the port carries its own copy
-of the pure-Python part.  An :class:`Integrator` is a palindromic
-sequence of (kind, *coeffs) steps for ONE MD unit step:
+An :class:`Integrator` is a palindromic sequence of (kind, *coeffs)
+steps for ONE MD unit step:
 
     ("T", c):      U <- exp(c*dt*p) U            (gauge update)
     ("V", c):      p <- p - c*dt*F(U)            (momentum update)
     ("FG", c, xi): force-gradient momentum update
 
-Coefficient sources are documented on each scheme below.  The
-trajectory itself is run by :mod:`qex_tpu_torch.mcmc.md`.
+Coefficient sources are documented on each scheme below.  ``integrate``
+runs one force over a trajectory as a host loop; the multi-timescale
+trajectory is run by :mod:`qex_tpu_torch.mcmc.md`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable
+from typing import Callable, Sequence
+
+import torch
+
+from ..gauge.action import force_and_derivative
+from ..ops import linalg
 
 @dataclasses.dataclass(frozen=True)
 class Integrator:
@@ -366,3 +372,96 @@ def get_integrator(name: str) -> Integrator:
             f"unknown integrator {name!r}; have "
             f"{sorted(_REGISTRY) + sorted(_ALIASES)}")
     return _REGISTRY[key](*args)
+
+
+def fg_force(u: torch.Tensor, a: float,
+             force_fn: Callable[[torch.Tensor], torch.Tensor],
+             update_u: Callable[[torch.Tensor, torch.Tensor, float],
+                                torch.Tensor],
+             exact: bool = True,
+             action_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+             ) -> torch.Tensor:
+    """Effective force of a force-gradient kick, p <- p - cdt F_eff with
+    F_eff = F(U) - a dF[F U] and a = 2 xi dt^2 / c (the caller computes
+    ``a``).
+
+    dF[F U] is the derivative of the force along the force flow,
+    d/de F(exp(e F) U) at e = 0 (QEX ``gaugeDerivDeriv2``), the form the
+    JAX package takes on every kind of term.  It is ``torch.func.jvp``
+    of ``force_fn``, which must then be made of plain torch operations;
+    or, where ``action_fn`` is given (its force is ``force_fn``), a
+    Hessian-vector product of the action, which also passes the port's
+    custom backward functions (solves, the SU(3) projection).
+    ``exact=False`` gives the Yin-Mawhinney shifted force
+    F(exp(-a F) U) (arXiv:1111.5059) instead, the JAX package's fallback
+    where ``jax.jvp`` fails.
+    """
+    def along_flow(f):
+        return torch.stack([linalg.mul(f[mu], u[mu])
+                            for mu in range(u.shape[0])])
+
+    if not exact:
+        return force_fn(update_u(u, force_fn(u), -a))
+    if action_fn is not None:
+        f1, df = force_and_derivative(action_fn, u, along_flow)
+        return f1 - a * df
+    f1 = force_fn(u)
+    _, df = torch.func.jvp(force_fn, (u,), (along_flow(f1),))
+    return f1 - a * df
+
+
+def _merge(steps: Sequence) -> tuple[list, list, list]:
+    """(head, body, tail) so that ``nsteps`` repeats of ``steps`` equal
+    head + body*(nsteps-1) + tail, with the last and first step of
+    adjacent repeats merged when both are plain T or plain V."""
+    steps = list(steps)
+    first, last = steps[0], steps[-1]
+    if first[0] == last[0] and first[0] in ("T", "V"):
+        merged = (first[0], first[1] + last[1])
+        return [first], steps[1:-1] + [merged], steps[1:]
+    return [], steps, steps
+
+
+def integrate(scheme: Integrator, u0: torch.Tensor, p0: torch.Tensor,
+              tau: float, nsteps: int,
+              force_fn: Callable[[torch.Tensor], torch.Tensor],
+              update_u: Callable[[torch.Tensor, torch.Tensor, float],
+                                 torch.Tensor],
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Integrate (u, p) over trajectory length ``tau`` in ``nsteps`` MD
+    steps of ``scheme``: ``update_u(u, p, eps)`` is U <- exp(eps p) U
+    and ``force_fn(u)`` the force F with pdot = -F; force-gradient kicks
+    take the exact derivative of ``force_fn`` (:func:`fg_force`)."""
+    dt = tau / nsteps
+
+    def apply_step(u, p, st):
+        kind = st[0]
+        if kind == "T":
+            if st[1] != 0.0:
+                u = update_u(u, p, st[1] * dt)
+        elif kind == "V":
+            if st[1] != 0.0:
+                p = p - (st[1] * dt) * force_fn(u)
+        elif kind == "FG":
+            c, xi = st[1], st[2]
+            if c != 0.0:
+                f = (fg_force(u, 2.0 * xi * dt * dt / c, force_fn,
+                              update_u)
+                     if xi != 0.0 else force_fn(u))
+                p = p - (c * dt) * f
+        else:  # pragma: no cover
+            raise ValueError(f"bad step kind {kind}")
+        return u, p
+
+    def apply_seq(u, p, seq):
+        for st in seq:
+            u, p = apply_step(u, p, st)
+        return u, p
+
+    if nsteps == 1:
+        return apply_seq(u0, p0, scheme.steps)
+    head, body, tail = _merge(scheme.steps)
+    u, p = apply_seq(u0, p0, head)
+    for _ in range(nsteps - 1):
+        u, p = apply_seq(u, p, body)
+    return apply_seq(u, p, tail)

@@ -12,7 +12,9 @@ schedule.
 Terms on smeared links V = transform(U) that give a ``chain_force``
 share one smear per kick time: one forward of the transform with grad,
 the coefficient-weighted sum of their chains dS_i/dV, one backward, one
-TAH projection.  Force-gradient kicks are not ported.
+TAH projection.  A force-gradient kick never joins that shared kick: it
+calls ``hmc.integrators.fg_force`` with its term's own force, its exact
+derivative taken as the term's ``fg_form`` names.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..hmc.integrators import Integrator, get_integrator
+from ..hmc.integrators import Integrator, fg_force, get_integrator
 from ..ops import group, linalg
 
 
@@ -35,6 +37,13 @@ class ActionTerm:
     noise ``xi`` (None for gauge terms).  A term on smeared links sets
     ``smeared`` and gives ``chain_force(v, phi)``, the torch-convention
     gradient dS/dV at the smeared links.
+
+    ``fg_form`` is how a force-gradient kick takes the derivative of
+    the term's force (:func:`..hmc.integrators.fg_force`): "jvp",
+    forward mode through ``force`` (plain torch operations), or "hvp",
+    a Hessian-vector product of ``action``, through the custom backward
+    functions of solves and the SU(3) projection.  Both are the exact
+    derivative, which the JAX package takes on every kind of term.
     """
 
     name: str
@@ -45,6 +54,7 @@ class ActionTerm:
     heatbath: Callable[[torch.Tensor, torch.Tensor], Any] | None = None
     smeared: bool = False
     chain_force: Callable[[torch.Tensor, Any], torch.Tensor] | None = None
+    fg_form: str = "jvp"
 
     def get_scheme(self) -> Integrator:
         s = self.scheme
@@ -138,17 +148,24 @@ def _apply_schedule(schedule, terms, u, p, phis, update_u, transform=None):
     for dt, kicks in schedule:
         if dt > _EPS:
             u = update_u(u, p, dt)
-        if any(fg_a != 0.0 for (_i, _c, fg_a) in kicks):
-            raise NotImplementedError(
-                "force-gradient kicks are not ported yet (ROADMAP A4)")
         shared = [k for k in kicks
                   if transform is not None and terms[k[0]].smeared
-                  and terms[k[0]].chain_force is not None]
+                  and terms[k[0]].chain_force is not None and k[2] == 0.0]
         if shared:
             p = _shared_smeared_kick(transform, terms, shared, u, p, phis)
-        for (i, cdt, _fg_a) in kicks:
-            if (i, cdt, _fg_a) not in shared:
-                p = p - cdt * terms[i].force(u, phis[i])
+        for (i, cdt, fg_a) in kicks:
+            if (i, cdt, fg_a) in shared:
+                continue
+            term, phi = terms[i], phis[i]
+            if fg_a == 0.0:
+                p = p - cdt * term.force(u, phi)
+                continue
+            p = p - cdt * fg_force(
+                u, fg_a, lambda uu, term=term, phi=phi: term.force(uu, phi),
+                update_u,
+                action_fn=(lambda uu, term=term, phi=phi:
+                           term.action(uu, phi))
+                if term.fg_form == "hvp" else None)
     return u, p
 
 

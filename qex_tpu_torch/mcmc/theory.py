@@ -18,7 +18,6 @@ of one time share one smear forward and one pullback (``mcmc.md``).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Sequence
 
 import torch
@@ -28,7 +27,7 @@ from ..gauge.action import (GaugeActionCoeffs, force_from_action,
 from ..gauge.smear import HypCoefs, StoutCoefs, nhyp_smear, stout_smear
 from ..hmc import hmc as hmc_mod
 from ..lattice import Lattice
-from ..ops import group, linalg
+from ..ops import linalg
 from ..physics import stag_hmc
 from ..solvers.base import SolverParams
 from .md import ActionTerm, run_trajectory
@@ -134,7 +133,8 @@ class LatticeFieldTheory:
                                     gspec.steps, gspec.scheme,
                                     smeared=smeared,
                                     chain_force=g_chain if smeared
-                                    else None))
+                                    else None,
+                                    fg_form="hvp" if smeared else "jvp"))
             self._at_links.append((g_at, None))
 
         for i, spec in enumerate(self.fermions):
@@ -180,7 +180,7 @@ class LatticeFieldTheory:
                                     spec.scheme, heatbath=f_heat,
                                     smeared=smeared,
                                     chain_force=f_chain if smeared
-                                    else None))
+                                    else None, fg_form="hvp"))
             self._at_links.append((s_act, base.heatbath_from_noise))
         return terms
 
@@ -190,12 +190,7 @@ class LatticeFieldTheory:
         return [v if t.smeared else u for t in self.terms]
 
     # -- HMC ---------------------------------------------------------------
-    @staticmethod
-    def draw_momenta(gen: torch.Generator, u: torch.Tensor) -> torch.Tensor:
-        """Gaussian TAH momenta, one field per direction."""
-        nd, nc = u.shape[0], u.shape[1]
-        return torch.stack([group.random_tah(gen, u.shape[3:], nc, u.dtype)
-                            for _ in range(nd)])
+    draw_momenta = staticmethod(hmc_mod.draw_momenta)
 
     def draw_noise(self, gen: torch.Generator, u: torch.Tensor
                    ) -> list[torch.Tensor | None]:
@@ -236,11 +231,7 @@ class LatticeFieldTheory:
                               transform=(self._smear if self._any_smeared()
                                          else None))
 
-    @staticmethod
-    def metropolis(dH: float, r: float) -> bool:
-        """Accept when log(r) < -dH for a uniform r in [0, 1), written as
-        r < exp(-dH) so r = 0 and large |dH| need no special care."""
-        return dH <= 0.0 or r < math.exp(-dH)
+    metropolis = staticmethod(hmc_mod.metropolis)
 
     def hmc_step(self, gen: torch.Generator, u: torch.Tensor,
                  always_accept: bool = False
@@ -253,8 +244,7 @@ class LatticeFieldTheory:
         u1, p1 = self.trajectory(u, p, phis)
         h_new = float(self.hamiltonian(u1, p1, phis))
         dH = h_new - h_old
-        r = float(torch.rand((), generator=gen, dtype=torch.float64,
-                             device=gen.device))
+        r = hmc_mod.draw_uniform(gen)
         acc = bool(always_accept) or self.metropolis(dH, r)
         return (u1 if acc else u), hmc_mod.HMCState(
             accepted=acc, dH=dH, h_old=h_old, h_new=h_new)

@@ -1,7 +1,7 @@
 """Site-local dense linear algebra on lattice fields (port of
 ``qex_tpu.ops.linalg``: products, traces, global sums, ``expm``, the
-closed-form ``det``/``inv``, ``rsqrt_phm`` and the polar projections
-``project_u``/``project_su``).
+closed-form ``det``/``inv``, ``sqrtm_db``, ``logm``, ``rsqrt_phm`` and
+the polar projections ``project_u``/``project_su``).
 
 All operations act on the *leading* site-tensor axes of a field: a
 matrix field has shape ``(n, m, *lattice_dims)`` and a vector field
@@ -52,6 +52,12 @@ def mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def mv_an(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """adj(m) @ v per site."""
     return (m.conj() * v[:, None]).sum(0)
+
+
+def outer(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Outer product v w^dag per site: a matrix field from two vector
+    fields."""
+    return v[:, None] * w.conj()[None, :]
 
 
 def trace(m: torch.Tensor) -> torch.Tensor:
@@ -114,6 +120,14 @@ def expm(m: torch.Tensor, order: int = 12, squarings: int = 4
     return r
 
 
+def expm_mul(z: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """exp(z) u per site, the exponential taken in complex128 and rounded
+    to u's type: a complex64 exponential is off the group by ~1e-6, and
+    MD and flow steps that apply it to their links gather that error
+    (ROADMAP C1)."""
+    return mul(expm(z.to(torch.complex128)).to(u.dtype), u)
+
+
 # --- closed forms for small n -------------------------------------------------
 
 def det(m: torch.Tensor) -> torch.Tensor:
@@ -155,6 +169,36 @@ def inv(m: torch.Tensor) -> torch.Tensor:
         rows = [[((-1) ** (i + j)) * cof(j, i) for j in range(3)]
                 for i in range(3)]
     return torch.stack([torch.stack(r) for r in rows]) / d
+
+
+def sqrtm_db(m: torch.Tensor, iters: int = 20) -> torch.Tensor:
+    """Principal matrix square root by the Denman-Beavers iteration
+    Y <- (Y + Z^-1)/2, Z <- (Z + Y^-1)/2 (QEX matroot), for fields with
+    no eigenvalue on the closed negative real axis."""
+    y = m
+    z = eye_like(m)
+    for _ in range(iters):
+        y, z = 0.5 * (y + inv(z)), 0.5 * (z + inv(y))
+    return y
+
+
+def logm(m: torch.Tensor, sqrt_iters: int = 6, series_order: int = 12,
+         db_iters: int = 20) -> torch.Tensor:
+    """Principal matrix logarithm by inverse scaling and squaring (QEX
+    matlog): ``sqrt_iters`` Denman-Beavers square roots bring the field
+    near the identity, then the Mercator series of log(I + X) is scaled
+    back by 2^sqrt_iters.  Meant for near-unitary fields such as gauge
+    links."""
+    x = m
+    for _ in range(sqrt_iters):
+        x = sqrtm_db(x, iters=db_iters)
+    d = x - eye_like(m)
+    acc = torch.zeros_like(m)
+    term = eye_like(m)
+    for j in range(1, series_order + 1):
+        term = mul(term, d)
+        acc = acc + ((-1.0) ** (j + 1) / j) * term
+    return (2.0 ** sqrt_iters) * acc
 
 
 # --- hermitian inverse square root and unitary projection -------------------
@@ -229,7 +273,9 @@ class _ProjectU3(torch.autograd.Function):
     """Polar projection of a 3x3 field with the closed-form backward of
     the JAX ``_project_u3_bwd``.  The forward runs without recording and
     keeps only (x, s = (x^dag x)^{-1/2}), never the Newton-Schulz
-    iterates.
+    iterates.  The backward is made of differentiable operations; when
+    it is itself recorded (``create_graph``, the force-gradient kick's
+    Hessian) it recomputes s from x with grad.
 
     torch's gradient of a real loss is the conjugate of JAX's, so the
     backward is conj(jax_bwd(conj(g))):
@@ -244,11 +290,16 @@ class _ProjectU3(torch.autograd.Function):
             s = rsqrt_phm(mul_an(x, x), iters=iters)
             out = mul(x, s)
         ctx.save_for_backward(x, s)
+        ctx.iters = iters
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, s = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # a recorded backward (a second derivative follows): s as a
+            # differentiable function of x
+            s = rsqrt_phm(mul_an(x, x), iters=ctx.iters)
         h = mul_an(x, x)
         r = mul(h, s)
         p = mul(x, s)

@@ -65,24 +65,77 @@ def gaussian_eta(gen: torch.Generator, lat: Lattice, dtype: torch.dtype
     return (torch.complex(xr, xi) * 0.7071067811865476).to(dtype)
 
 
+class _Solved(torch.autograd.Function):
+    """x = A(links)^{-1} b from its computed value ``x``, with the
+    implicit-function backward (A hermitian): y = A^{-1} g_x,
+    g_links = d/dlinks -Re<y, A(links) x> at fixed x and y, g_b = y.
+    It records a pseudofermion action's solution for a second
+    derivative."""
+
+    @staticmethod
+    def forward(ctx, b, x, apply_a, solve, *links):
+        ctx.save_for_backward(x, *links)
+        ctx.apply_a, ctx.solve = apply_a, solve
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, gx):
+        x, *links = ctx.saved_tensors
+        with torch.no_grad():
+            y = ctx.solve(links, gx)
+        with torch.enable_grad():
+            ll = [v.detach().requires_grad_(True) for v in links]
+            q = -linalg.redot(y, ctx.apply_a(ll, x), dtype=torch.float64)
+            gl = torch.autograd.grad(q, ll)
+        return (y, None, None, None, *gl)
+
+
+def _recorded_grad(links, phi, x, apply_a, solve):
+    """The links' gradient of S = Re<phi, A^{-1} phi>, -d/dlinks
+    Re<x, A(links) x>, recorded as a function of the links with the
+    solution's own dependence on them: what a Hessian-vector product
+    (the exact force-gradient kick) differentiates once more.  Returns
+    (gradients, recorded x)."""
+    xg = _Solved.apply(phi, x, apply_a, solve, *links)
+
+    def quad(*ll):
+        return -linalg.redot(xg, apply_a(ll, xg), dtype=torch.float64)
+
+    grads = torch.func.grad(quad, argnums=tuple(range(len(links))))(*links)
+    return grads, xg
+
+
 class _QuadInv(torch.autograd.Function):
     """S(u, phi) = Re[phi^dag A(u)^{-1} phi] with the implicit-function
-    backward (one solve forward, none backward)."""
+    backward (one solve forward, none backward; one more when the
+    backward is itself recorded for a second derivative)."""
 
     @staticmethod
     def forward(ctx, u, phi, lat, bc, m, params):
         s = st.new_stag_eo(lat, u, bc)
         x, _ = stag_solve.solve_ee(s, phi, m, params)
-        ctx.save_for_backward(u)
-        ctx.x, ctx.lat, ctx.bc, ctx.m = x, lat, bc, m
+        ctx.save_for_backward(u, phi)
+        ctx.x, ctx.lat, ctx.bc, ctx.m, ctx.params = x, lat, bc, m, params
         return linalg.redot(phi, x, dtype=torch.float64)
 
     @staticmethod
     def backward(ctx, g):
-        (u,) = ctx.saved_tensors
+        u, phi = ctx.saved_tensors
         x = ctx.x
         gu = gphi = None
-        if ctx.needs_input_grad[0]:
+        if torch.is_grad_enabled():
+            lat, bc, m, params = ctx.lat, ctx.bc, ctx.m, ctx.params
+
+            def apply_a(links, v):
+                return _a_apply(lat, bc, links[0], v, m)
+
+            def solve(links, b):
+                return stag_solve.solve_ee(st.new_stag_eo(lat, links[0], bc),
+                                           b, m, params)[0]
+
+            (gu,), x = _recorded_grad((u,), phi, x, apply_a, solve)
+            gu = g.to(gu.real.dtype) * gu
+        elif ctx.needs_input_grad[0]:
             with torch.enable_grad():
                 uu = u.detach().requires_grad_(True)
                 quad = -linalg.redot(
@@ -215,21 +268,34 @@ def _fast3_ops_sloppy(f3: sf.FastStag3EO
 class _HisqQuadInv(torch.autograd.Function):
     """S(fat, long, phi) = Re[phi^dag A3(fat, long)^{-1} phi]: one solve
     forward; backward -x^dag (dA3) x by autograd of the plain
-    canonical-layout d2ee3 with x held fixed."""
+    canonical-layout d2ee3 with x held fixed (recorded with x's own
+    dependence on the links for a second derivative)."""
 
     @staticmethod
     def forward(ctx, fl, ll, phi, ferm, params):
         x, _ = ferm._solve_links((fl, ll), phi, params, ferm.m)
-        ctx.save_for_backward(fl, ll)
-        ctx.x, ctx.ferm = x, ferm
+        ctx.save_for_backward(fl, ll, phi)
+        ctx.x, ctx.ferm, ctx.params = x, ferm, params
         return linalg.redot(phi, x, dtype=torch.float64)
 
     @staticmethod
     def backward(ctx, g):
-        fl, ll = ctx.saved_tensors
+        fl, ll, phi = ctx.saved_tensors
         x, ferm = ctx.x, ctx.ferm
         gf = gl = gphi = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+        if torch.is_grad_enabled():
+            params = ctx.params
+
+            def apply_a(links, v):
+                return st.d2ee3(st.new_stag3_eo(ferm.lat, *links), v, ferm.m)
+
+            def solve(links, b):
+                return ferm._solve_links(tuple(links), b, params, ferm.m)[0]
+
+            (gf, gl), x = _recorded_grad((fl, ll), phi, x, apply_a, solve)
+            gf = g.to(gf.real.dtype) * gf
+            gl = g.to(gl.real.dtype) * gl
+        elif ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             with torch.enable_grad():
                 f = fl.detach().requires_grad_(True)
                 lg = ll.detach().requires_grad_(True)

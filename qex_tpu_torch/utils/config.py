@@ -1,8 +1,8 @@
-"""Configuration decks of the production app (port of ``HMCConfig``
-from ``qex_tpu.utils.config``, a copy, not an import): the staghmc_spv
-XML deck, flat JSON decks and ``-key=value`` overrides, mapped onto one
-dataclass.  The XML tag names are the reference's, so existing decks
-parse unchanged.
+"""Configuration decks (port of ``HMCConfig`` and ``FlowConfig`` from
+``qex_tpu.utils.config``, a copy, not an import): the staghmc_spv XML
+deck, flat JSON decks and ``-key=value`` overrides mapped onto one
+dataclass, and the gauge_flow XML deck.  The XML tag names are the
+reference's, so existing decks parse unchanged.
 """
 
 from __future__ import annotations
@@ -216,3 +216,58 @@ class HMCConfig:
             cur = getattr(self, k)
             setattr(self, k, type(cur)(v) if cur is not None else v)
         return self
+
+
+@dataclasses.dataclass
+class FlowConfig:
+    """Schema of the gauge_flow XML deck (src/flow/input_gf.xml)."""
+
+    flow_act: str = "Wilson"       # Wilson | Rect | Adj
+    ns: int = 8
+    nt: int = 8
+    t_max: float = 1.0
+    segments: list = dataclasses.field(
+        default_factory=lambda: [(1.0, 0.02)])
+    beta: float = 5.0
+    c1: float = -1.0 / 12.0
+    adj_plaq: float = 0.0
+    start: str = "hot"
+    seed: int = 987654321
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return (self.ns, self.ns, self.ns, self.nt)
+
+    @classmethod
+    def from_xml(cls, path: str) -> "FlowConfig":
+        root = ET.parse(path).getroot()
+        c = cls()
+        c.flow_act = _get(root, "action/flow_act", c.flow_act)
+        c.ns = _get(root, "action/geom/Ns", c.ns, int)
+        c.nt = _get(root, "action/geom/Nt", c.nt, int)
+        c.t_max = _get(root, "flow_prms/global_params/t_max", c.t_max,
+                       float)
+        nloops = _get(root, "flow_prms/global_params/f_munu_loop", 1, int)
+        segs = []
+        sp = root.find("flow_prms/specific_params")
+        if sp is not None:
+            times, dts = {}, {}
+            for el in sp:
+                if el.tag.startswith("time"):
+                    times[int(el.tag[4:])] = float(el.text)
+                elif el.tag.startswith("dt"):
+                    dts[int(el.tag[2:])] = float(el.text)
+            for i in sorted(times):
+                segs.append((times[i], dts.get(i, 0.02)))
+        c.segments = segs or [(c.t_max, 0.02)]
+        if c.flow_act == "Wilson":
+            c.beta = _get(root, "action_params/Wilson/beta_w", c.beta,
+                          float)
+        elif c.flow_act == "Rect":
+            c.beta = _get(root, "action_params/Rect/beta_r", c.beta, float)
+            c.c1 = _get(root, "action_params/Rect/c1", c.c1, float)
+        elif c.flow_act == "Adj":
+            c.beta = _get(root, "action_params/Adj/beta_a", c.beta, float)
+            c.adj_plaq = _get(root, "action_params/Adj/adj_plaq",
+                              c.adj_plaq, float)
+        return c

@@ -134,8 +134,7 @@ def test_app_runs_on_the_cpu_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["-rank_geom=1,1,1,2"], "A11"), (["-pbp_freq=1"], "A9"),
-    (["-nf=2"], "A6"), (["-ferm_int_alg=FGI"], "A4"),
-    (["-gauge_act=rect"], "A4"), (["--profile"], "split-step"),
+    (["-nf=2"], "A6"), (["--profile"], "split-step"),
 ])
 def test_unported_app_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
