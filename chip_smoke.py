@@ -88,10 +88,35 @@ Phases, each printed as one JSON line:
      after the warm-up must be accepted),
      gauge_flow --load of that checkpoint with both committed 8^4 flow
      decks, and staghmc_spv for one trajectory on a copy of the config-4
-     deck at 8^4 with a rect gauge action and the FGI gauge integrator.
+     deck at 8^4 with a rect gauge action and the FGI gauge integrator;
+ then the rest of the staggered catalogue:
+ 23. stag_multi: stag_solve.solve_multi at 32^4 on Haar links, r2req
+     1e-10, on exp_msloppy.py's light masses (0.025-0.2: the float32
+     refinement on B1) and heavy masses (0.4-1.0, sloppy: a joint pass
+     on B1b, refinement on B1), each mass's true residual within
+     TOL_MULTI; solve_batched with 3 right-hand sides at 24^4, m=0.05,
+     each within TOL_RES;
+ 24. rhmc: the app staghmc_spv on the config-4 deck with -nf=2 (one
+     rooted fermion, nHYP) at 24^4, RHMC_NTRAJ trajectories with the
+     split into smear forward, smear pullback, solves and the rest, the
+     rational approximations' degree and error, the multishift's
+     iterations and its smallest shift's true residual, also on rough
+     unsmeared links;
+ 25. ab_rooted: phase 5 for config 4 with the rooted fermion (nHYP,
+     from AB_SMEARED_START links);
+ 26. hasenbusch: the app mcmc_hmc on the committed deck
+     hasenbusch_24.json (config 4 at 24^4 with Hasenbusch mass 0.2),
+     2 trajectories; then one 24^4 trajectory of the HISQ theory of
+     phase 10 with Hasenbusch mass 0.4, from HISQ_START links;
+ 27. ab_hisq_hasenbusch: phase 5 for that HISQ theory at 8^4;
+ 28. northstar32: B1 against its plain twin at 32^3x64 (TOL_KERNEL),
+     then one hmc_step of config 4 as run (nHYP, exp_northstar32.py
+     :45-56) at that volume from a cold start, with the split and the
+     peak memory.
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10, 13, 14, 15, the A/B of 17, 18-22) and read just after it; 19-21
-and the pure-gauge apps of 22 must launch no kernel, staghmc_spv B1.  Then
+7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28) and read just after
+it; 19-21 and the pure-gauge apps of 22 must launch no kernel,
+staghmc_spv B1.  Then
 the card line, the kernels summary and, last, the ok line.  Any failed
 check raises, so the script exits non-zero and prints no ok line;
 without a CUDA device it exits non-zero at once.
@@ -233,6 +258,13 @@ CONFIG3_NSTEPS = (20, 24, 32, 48)
 PG_APP_STEPS, PG_APP_WARMUP, PG_APP_NTRAJ = 30, 6, 10
 TOL_FLOW = 1e-5         # relative, card complex64 against host complex128:
 #                         links, t^2 E_clover and t^2 E_plaq
+# phase 23: exp_msloppy.py's masses (:31, :32) and solve parameters
+MULTI_LIGHT = (0.025, 0.05, 0.1, 0.2)
+MULTI_HEAVY = (0.4, 0.5, 0.7, 1.0)
+MULTI_R2REQ = 1e-10
+RHMC_NTRAJ = 3
+# phase 28: exp_northstar32.py's volume
+NORTHSTAR_DIMS = (32, 32, 32, 64)
 
 
 def odd_generator():
@@ -591,7 +623,8 @@ def hisq_theory(lat):
 
 
 def run_trajectories(th, lat, gen, u, n: int, tag: str,
-                     need: str = "stag8_dslash", first: int = 0) -> tuple:
+                     need: str = "stag8_dslash", first: int = 0,
+                     always_accept: bool = False) -> tuple:
     """``n`` hmc_step calls, each with its time, dH, plaquette, kernel
     launches and peak memory; raises on a non-finite dH, a plaquette
     outside (0, 1) or no launch of kernel ``need``."""
@@ -600,7 +633,8 @@ def run_trajectories(th, lat, gen, u, n: int, tag: str,
     for i in range(first, first + n):
         before = read_counts()
         torch.cuda.reset_peak_memory_stats()
-        (u, state), secs = timed_once_s(lambda: th.hmc_step(gen, u))
+        (u, state), secs = timed_once_s(lambda: th.hmc_step(
+            gen, u, always_accept=always_accept))
         plaq = float(loops.plaquette(lat, u))
         after = read_counts()
         rec = {"traj": i, "seconds": secs, "dH": state.dH,
@@ -677,12 +711,14 @@ def split_timer(patches):
                 delattr(owner, attr)
 
 
-def split_run(th, lat, gen, u, patches, tag, need, first):
+def split_run(th, lat, gen, u, patches, tag, need, first,
+              always_accept: bool = False):
     """One trajectory under :func:`split_timer`; returns (u, its record,
     the split with the remainder as "rest" and the wall time)."""
     with split_timer(patches) as split:
         t0 = time.perf_counter()
-        u, trajs = run_trajectories(th, lat, gen, u, 1, tag, need, first)
+        u, trajs = run_trajectories(th, lat, gen, u, 1, tag, need, first,
+                                    always_accept)
         wall = time.perf_counter() - t0
     split["rest"] = wall - sum(split.values())
     split["wall"] = wall
@@ -1772,6 +1808,283 @@ def phase_apps_gauge() -> dict:
     return res
 
 
+# --- the rest of the staggered catalogue ------------------------------------
+
+def _even_true_r2(s64, x_e, m: float, b_e) -> float:
+    """|A(m) x - b|^2 / |b|^2 of the even system, with the plain
+    canonical operator in complex128."""
+    from qex_tpu_torch.physics import staggered as st
+    x = x_e.to(torch.complex128)
+    return rel2(st.d2ee(s64, x, m), b_e.to(torch.complex128))
+
+
+def phase_stag_multi(gen) -> dict:
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.ops import eo, group
+    from qex_tpu_torch.physics import stag_solve
+    from qex_tpu_torch.physics import staggered as st
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice(GEN_DIMS)
+    u = torch.stack([group.random_su(gen, lat.dims, lat.nc, torch.complex64)
+                     for _ in range(lat.nd)])
+    s = st.new_stag_eo(lat, u)
+    s64 = st.new_stag_eo(lat, u.to(torch.complex128))
+    b = eo.pack(torch.randn(lat.vector_shape(), dtype=torch.complex64,
+                            generator=gen, device=gen.device), 4)[0]
+    res = {"phase": "stag_multi", "dims": list(lat.dims),
+           "links": "Haar random", "r2req": MULTI_R2REQ}
+    torch.cuda.synchronize()
+    reset_counts()                         # count the main path only
+    runs = {}
+    for route, masses, sloppy in (("f32_refined", MULTI_LIGHT, False),
+                                  ("sloppy", MULTI_HEAVY, True)):
+        params = SolverParams(r2req=MULTI_R2REQ, maxits=1200, restarts=3,
+                              sloppy=sloppy)
+        before = read_counts()
+        (xs, stats), secs = timed_once_s(
+            lambda: stag_solve.solve_multi(s, b, masses, params))
+        after = read_counts()
+        runs[route] = (masses, xs, {
+            "masses": list(masses), "sloppy": sloppy,
+            "iterations": stats.iterations, "solver_r2": stats.r2,
+            "seconds": secs,
+            "kernel_launches": {k: after[k] - before[k] for k in after}})
+    blat = Lattice((24, 24, 24, 24))
+    bu = random_links(blat, gen)
+    bs = torch.randn((3,) + blat.vector_shape(), dtype=torch.complex64,
+                     generator=gen, device=gen.device)
+    bsolve = st.new_stag_eo(blat, bu)
+    before = read_counts()
+    (xb, bstats), bsecs = timed_once_s(lambda: stag_solve.solve_batched(
+        bsolve, bs, 0.05, SolverParams(r2req=MULTI_R2REQ, maxits=5000,
+                                       restarts=5)))
+    after = read_counts()
+    launches = read_counts()
+    for route, (masses, xs, rec) in runs.items():
+        rec["true_rel_r2"] = [_even_true_r2(s64, x, m, b)
+                              for x, m in zip(xs, masses)]
+        res[route] = rec
+    del runs, xs
+    b64 = st.new_stag_eo(blat, bu.to(torch.complex128))
+    true_b = []
+    for bb, x in zip(bs, xb):
+        be, bo = (v.to(torch.complex128) for v in eo.pack(bb, 4))
+        rhs = 0.05 * be - st.dslash_eo(b64, bo, 0)
+        true_b.append(_even_true_r2(b64, eo.pack(x, 4)[0], 0.05, rhs))
+    res["batched"] = {"dims": list(blat.dims), "m": 0.05, "nrhs": 3,
+                      "iterations": [x.iterations for x in bstats],
+                      "seconds": bsecs, "true_rel_r2_even_system": true_b,
+                      "kernel_launches": {k: after[k] - before[k]
+                                          for k in after}}
+    res["kernel_launches"] = launches
+    emit(res)
+    for route in ("f32_refined", "sloppy"):
+        for m, r2 in zip(res[route]["masses"], res[route]["true_rel_r2"]):
+            if not r2 <= TOL_MULTI:
+                raise AssertionError(f"stag_multi {route}: mass {m} true "
+                                     f"residual {r2}")
+    for k, route in (("stag8_dslash", "f32_refined"),
+                     ("stag8_dslash_bf16", "sloppy")):
+        if res[route]["kernel_launches"][k] <= 0:
+            raise AssertionError(f"stag_multi {route}: {k} never launched")
+    for r2 in true_b:
+        if not r2 <= TOL_RES:
+            raise AssertionError(f"stag_multi batched: true residual {r2}")
+    if res["batched"]["kernel_launches"]["stag8_dslash"] <= 0:
+        raise AssertionError("stag_multi batched: B1 never launched")
+    return res
+
+
+def rooted_theory(lat, nf: int = 2):
+    """Config 4 as it is run (nHYP) with the fermion rooted to ``nf``."""
+    import dataclasses
+    from qex_tpu_torch.gauge.smear import HypCoefs
+    from qex_tpu_torch.mcmc.theory import FermionSpec, LatticeFieldTheory
+    th = config4_theory(lat, smear=HypCoefs(0.4, 0.5, 0.5))
+    fermions = [dataclasses.replace(f, kind="rooted", nf=nf)
+                if f.kind == "fermion" else f for f in th.fermions]
+    return LatticeFieldTheory(lat, th.gauges, fermions, th.smear_coefs,
+                              th.bc, th.solver_params,
+                              th.force_solver_params, th.tau)
+
+
+def hisq_hasenbusch_theory(lat):
+    """Phase 10's HISQ theory with one Hasenbusch mass, 0.4."""
+    import dataclasses
+    from qex_tpu_torch.mcmc.theory import LatticeFieldTheory
+    th = hisq_theory(lat)
+    fermions = [dataclasses.replace(f, hmasses=(0.4,))
+                for f in th.fermions]
+    return LatticeFieldTheory(lat, th.gauges, fermions, th.smear_coefs,
+                              th.bc, th.solver_params,
+                              th.force_solver_params, th.tau)
+
+
+def _split_patches():
+    """smear forward, smear pullback and solves (single-mass and
+    multishift) of a staggered theory, for :func:`split_timer`."""
+    from qex_tpu_torch.mcmc import md
+    from qex_tpu_torch.mcmc.theory import LatticeFieldTheory
+    from qex_tpu_torch.physics import stag_hmc, stag_solve
+    return [("smear_forward", LatticeFieldTheory, "_smear"),
+            ("smear_pullback", md, "_pullback"),
+            ("solves", stag_solve, "solve_ee"),
+            ("solves", stag_hmc.StagRootedFermion, "_multishift")]
+
+
+def _traj_lines(lines: list[str], prefixes: tuple) -> list[dict]:
+    """dH and seconds of the app's trajectory verdict lines."""
+    out = []
+    for ln in lines:
+        if ln.startswith(prefixes):
+            words = ln.replace("(", " ").split()
+            out.append({"dH": float(words[words.index("dH") + 1]),
+                        "seconds": float(words[words.index("s)") - 1]),
+                        "line": ln})
+    return out
+
+
+def phase_rhmc(gen) -> dict:
+    from qex_tpu_torch.apps import staghmc_spv
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import stag_hmc
+    from qex_tpu_torch.solvers.base import SolverParams
+    from qex_tpu_torch.solvers.rational import rational_approx
+    deck = str(ROOT / "qex_tpu_torch" / "apps" / "decks" / "config4_24.xml")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                         # count the main path only
+    with split_timer(_split_patches()) as split:
+        t0 = time.perf_counter()
+        lines = _run_main(staghmc_spv.main, [
+            "--xml", deck, "--ntraj", str(RHMC_NTRAJ), "-nf=2",
+            "-check_solvers=1", "-save_freq=0"])
+        wall = time.perf_counter() - t0
+    split["rest"] = wall - sum(split.values())
+    split["wall"] = wall
+    launches = read_counts()
+    trajs = _traj_lines(lines, ("ACCEPT", "REJECT"))
+    plaqs = [r[0] for r in _finite_numbers(lines, "MEASplaq ", RHMC_NTRAJ)]
+    solver = [ln.split() for ln in lines if ln.startswith("SOLVER rooted")]
+    m, mm = 0.05, 0.05 ** 2
+    approx = {}
+    for key, (num, den) in (("heatbath_A^(+nf/8)", (2, 8)),
+                            ("action_A^(-nf/4)", (-2, 4))):
+        ra = rational_approx(num, den, mm, mm + 16.0, 10)
+        approx[key] = {"degree": ra.degree, "max_rel_err": ra.max_rel_err,
+                       "lo": ra.lo, "hi": ra.hi, "smallest_shift":
+                       min(ra.poles)}
+    # the same multishift on rough unsmeared expm(0.7 tah) links, where
+    # the smallest shift's complex64 residual may stall above r2req, at
+    # the deck's mass and a lighter one
+    lat = Lattice((24, 24, 24, 24))
+    u = random_links(lat, gen)
+    probe = []
+    for mp in (m, 0.01):
+        ferm = stag_hmc.StagRootedFermion(lat, mp, nf=2, params=SolverParams(
+            r2req=1e-10, maxits=3000, restarts=3))
+        its, r2 = ferm.check_solve(u, ferm.heatbath(gen, u))
+        probe.append({"m": mp, "multishift_iterations": its,
+                      "smallest_shift_true_rel_r2": r2})
+    del u
+    res = {"phase": "rhmc", "dims": [24, 24, 24, 24], "nf": 2, "m": m,
+           "trajectories": trajs,
+           "seconds_per_traj": [r["seconds"] for r in trajs],
+           "plaquettes": plaqs, "split_seconds": split,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "rational": approx,
+           "multishift_iterations": [int(w[w.index("its") + 1])
+                                     for w in solver],
+           "smallest_shift_true_rel_r2": [float(w[w.index("relr2") + 1])
+                                          for w in solver],
+           "rough_links_probe": {"links": "expm(0.7 tah), unsmeared",
+                                 "r2req": 1e-10, "by_mass": probe},
+           "kernel_launches": launches}
+    emit(res)
+    if len(trajs) != RHMC_NTRAJ or not all(math.isfinite(r["dH"])
+                                           for r in trajs):
+        raise AssertionError(f"rhmc: dH {[r['dH'] for r in trajs]}")
+    if not all(0.0 < p < 1.0 for p in plaqs):
+        raise AssertionError(f"rhmc: plaquettes {plaqs}")
+    if launches["stag8_dslash"] <= 0:
+        raise AssertionError("rhmc: B1 never launched")
+    return res
+
+
+def phase_hasenbusch(gen) -> dict:
+    from qex_tpu_torch.apps import mcmc_hmc
+    from qex_tpu_torch.lattice import Lattice
+    deck = str(ROOT / "qex_tpu_torch" / "apps" / "decks"
+               / "hasenbusch_24.json")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                         # count the main path only
+    t0 = time.perf_counter()
+    lines = _run_main(mcmc_hmc.main, ["--json", deck, "--ntraj", "2"])
+    secs = time.perf_counter() - t0
+    app_launches = read_counts()
+    trajs = _traj_lines(lines, ("traj ",))
+    _finite_numbers(lines, "traj ", 2)
+    plaqs = [float(ln.split("MEASplaq ")[1].split()[0]) for ln in lines
+             if ln.startswith("traj ")]
+    res = {"phase": "hasenbusch", "deck": "hasenbusch_24.json",
+           "terms": lines[0], "mcmc_hmc_trajectories": trajs,
+           "mcmc_hmc_seconds": secs, "plaquettes": plaqs,
+           "mcmc_hmc_peak_mem_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "mcmc_hmc_kernel_launches": app_launches}
+    lat = Lattice((24, 24, 24, 24))
+    th = hisq_hasenbusch_theory(lat)
+    u = random_links(lat, gen, scale=HISQ_START)
+    u, htrajs = run_trajectories(th, lat, gen, u, 1, "hasenbusch hisq",
+                                 "hisq16_dslash")
+    launches = read_counts()
+    res.update({"hisq_terms": [t.name for t in th.terms],
+                "hisq_trajectory": htrajs[0], "kernel_launches": launches})
+    emit(res)
+    if len(trajs) != 2 or not all(math.isfinite(r["dH"]) for r in trajs):
+        raise AssertionError(f"hasenbusch: mcmc_hmc dH {trajs}")
+    if not all(0.0 < p < 1.0 for p in plaqs):
+        raise AssertionError(f"hasenbusch: plaquettes {plaqs}")
+    if app_launches["stag8_dslash"] <= 0:
+        raise AssertionError("hasenbusch: mcmc_hmc never launched B1")
+    return res
+
+
+def phase_northstar32(gen) -> dict:
+    """One config-4 trajectory (nHYP) at exp_northstar32.py's volume from
+    its cold start, after B1 is held against its plain twin at that
+    volume (both parities and the fused d2ee, TOL_KERNEL) on rough links
+    and a vector of a generator of their own, so that the trajectory
+    draws what it drew before the check existed."""
+    from qex_tpu_torch.gauge.smear import HypCoefs
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.ops import group
+    lat = Lattice(NORTHSTAR_DIMS)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    check = compare_hop("stag8_dslash",
+                        make_ops("stag8", lat, random_links(lat, g))(
+                            torch.float32), fast_vector(lat, g))
+    torch.cuda.empty_cache()
+    th = config4_theory(lat, smear=HypCoefs(0.4, 0.5, 0.5))
+    u = group.unit_gauge(lat, torch.complex64, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                         # count the main path only
+    # accepted whatever its dH: from the cold start a rejected
+    # trajectory would leave the plaquette at 1
+    u, rec, split = split_run(th, lat, gen, u, _split_patches(),
+                              "northstar32", "stag8_dslash", 0,
+                              always_accept=True)
+    res = {"phase": "northstar32", "dims": list(lat.dims),
+           "stag8_dslash_vs_plain": check, "trajectory": rec,
+           "seconds_per_traj": rec["seconds"], "split_seconds": split,
+           "peak_mem_gib": rec["peak_mem_gib"],
+           "kernel_launches": read_counts()}
+    emit(res)
+    return res
+
+
 def profiled(tag: str, fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device kernel
     count and busy time (sum of kernel durations; one stream, so they
@@ -1878,16 +2191,29 @@ def main() -> int:
     phase_puregauge_config3(gen)
     phase_flow(gen)
     phase_apps_gauge()
+    smulti = phase_stag_multi(gen)
+    rhmc = phase_rhmc(gen)
+    _ab(gen, "ab_rooted", rooted_theory, start=AB_SMEARED_START)
+    hasen = phase_hasenbusch(gen)
+    _ab(gen, "ab_hisq_hasenbusch", hisq_hasenbusch_theory, start=HISQ_START,
+        needed=("hisq16_dslash",))
+    ns32 = phase_northstar32(gen)
+    kern["stag8_dslash"]["max_abs_err"] = max(
+        kern["stag8_dslash"]["max_abs_err"],
+        ns32["stag8_dslash_vs_plain"]["max_abs_err"])
     for name, err in gen_err.items():
         kern[name] = dict(gtime[name], max_abs_err=err)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(dev["smi"], flush=True)
-    # each kernel's main path: the smeared config-4 trajectories and the
-    # app for the 8-term kernels, config 5's solves and the HISQ
-    # trajectories for the 16-term ones, the Wilson solves, mesons and
-    # MG A/B for the Wilson hop, the generation benchmark's A/B and CG
-    # for the older staggered kernels
-    paths = {"stag8": (smeared, app), "hisq16": (hsolve, hhmc),
+    # each kernel's main path: the smeared config-4 trajectories, the
+    # app, the multi-mass and batched solves, the rooted and Hasenbusch
+    # runs and the 32^3x64 trajectory for the 8-term kernels, config 5's
+    # solves and the HISQ trajectories (with and without a Hasenbusch
+    # mass) for the 16-term ones, the Wilson solves, mesons and MG A/B
+    # for the Wilson hop, the generation benchmark's A/B and CG for the
+    # older staggered kernels
+    paths = {"stag8": (smeared, app, smulti, rhmc, hasen, ns32),
+             "hisq16": (hsolve, hhmc, hasen),
              "wilson8": (wsolve, wmesons, wmg),
              **{kind: (gtime, gcg) for kind in GEN_KINDS}}
     kernels = []

@@ -1,7 +1,8 @@
 """XML-driven staggered + Pauli-Villars HMC, the production app (port of
 ``qex_tpu.apps.staghmc_spv``).
 
-nHYP-smeared staggered fermions (Nf, mass) + num_pv Pauli-Villars bosons
+nHYP-smeared staggered fermions (Nf, mass; one rooted field where Nf is
+not a multiple of 4) + num_pv Pauli-Villars bosons
 (mass_pv), an unsmeared and an optional smeared gauge action (Wilson,
 rect or adjoint), per-field integrators (force-gradient schemes
 included) and step counts, a Metropolis warm-up
@@ -81,17 +82,20 @@ def build_theory(cfg, lat):
     fermions = []
     matter_smeared = cfg.matter_smearing.lower() == "nhyp"
     # each staggered field is 4 tastes: Nf % 4 == 0 takes Nf/4 plain
-    # pseudofermion fields, as the reference
+    # pseudofermion fields, as the reference, any other Nf one rooted
+    # field
     if cfg.nf > 0:
-        if cfg.nf % 4 != 0:
-            raise NotImplementedError(
-                f"Nf={cfg.nf} needs a rooted fermion, which is not ported "
-                "yet (ROADMAP A6)")
-        for _ in range(cfg.nf // 4):
-            fermions.append(FermionSpec("fermion", cfg.mass,
+        if cfg.nf % 4 == 0:
+            for _ in range(cfg.nf // 4):
+                fermions.append(FermionSpec("fermion", cfg.mass,
+                                            steps=cfg.f_steps,
+                                            scheme=cfg.ferm_int_alg,
+                                            smeared=matter_smeared))
+        else:
+            fermions.append(FermionSpec("rooted", cfg.mass,
                                         steps=cfg.f_steps,
                                         scheme=cfg.ferm_int_alg,
-                                        smeared=matter_smeared))
+                                        smeared=matter_smeared, nf=cfg.nf))
     for _ in range(cfg.num_pv):
         fermions.append(FermionSpec("boson", cfg.mass_pv,
                                     steps=cfg.pv_steps,

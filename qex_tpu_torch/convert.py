@@ -81,7 +81,10 @@ def _fermion_spec(f: Any) -> FermionSpec:
     return FermionSpec(kind=str(f.kind), mass=float(f.mass),
                        steps=int(f.steps), scheme=str(f.scheme),
                        smeared=bool(getattr(f, "smeared", True)),
-                       hmasses=tuple(getattr(f, "hmasses", ())))
+                       nf=int(getattr(f, "nf", 1)),
+                       degree=int(getattr(f, "degree", 10)),
+                       hmasses=tuple(float(h) for h in
+                                     getattr(f, "hmasses", ())))
 
 
 def theory_from_reference(lat: Any, gauge: Any, fermions: Sequence[Any] = (),

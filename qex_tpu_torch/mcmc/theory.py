@@ -46,15 +46,21 @@ class GaugeActionSpec:
 
 @dataclasses.dataclass(frozen=True)
 class FermionSpec:
-    """One staggered matter field: ``kind`` is "fermion", "boson" or
-    "hisq" (HISQ does its own fat7 + naik smearing, so its ``smeared``
-    is ignored; "rooted" and Hasenbusch ``hmasses`` are not ported)."""
+    """One staggered matter field: ``kind`` is "fermion", "boson",
+    "rooted" (S = phi^dag A^{-nf/4} phi by a rational approximation of
+    ``degree`` poles) or "hisq" (HISQ does its own fat7 + naik smearing,
+    so its ``smeared`` is ignored).  ``hmasses`` (ascending Hasenbusch
+    masses) splits a "fermion" or "hisq" field into ratio terms and one
+    plain term at the heaviest mass; other kinds ignore it, as the JAX
+    package does."""
 
     kind: str
     mass: float
     steps: int = 10
     scheme: str = "2MN"
     smeared: bool = True
+    nf: int = 1
+    degree: int = 10
     hmasses: tuple = ()
 
 
@@ -138,51 +144,72 @@ class LatticeFieldTheory:
             self._at_links.append((g_at, None))
 
         for i, spec in enumerate(self.fermions):
-            if spec.hmasses:
-                raise NotImplementedError(
-                    "Hasenbusch masses are not ported yet (ROADMAP A2)")
-            if spec.kind == "fermion":
-                base = stag_hmc.StagFermion(
-                    lat, spec.mass, self.bc, self.solver_params,
-                    force_params=self.force_solver_params)
-            elif spec.kind == "boson":
-                base = stag_hmc.StagBoson(lat, spec.mass, self.bc,
-                                          self.solver_params)
-            elif spec.kind == "hisq":
+            sp, fp = self.solver_params, self.force_solver_params
+            if spec.kind == "hisq":
                 spec = dataclasses.replace(spec, smeared=False)
-                base = stag_hmc.HisqFermion(
-                    lat, spec.mass, bc=self.bc, params=self.solver_params,
-                    force_params=self.force_solver_params)
+            if spec.kind in ("fermion", "hisq") and spec.hmasses:
+                # Hasenbusch chain: ratio(m, h1), ratio(h1, h2), ...,
+                # and the plain field at the heaviest mass
+                ms = (spec.mass,) + tuple(spec.hmasses)
+                if spec.kind == "fermion":
+                    bases = [stag_hmc.StagHasenbusch(
+                        lat, ms[j], ms[j + 1], self.bc, sp, force_params=fp)
+                        for j in range(len(ms) - 1)]
+                    bases.append(stag_hmc.StagFermion(
+                        lat, ms[-1], self.bc, sp, force_params=fp))
+                else:
+                    bases = [stag_hmc.HisqHasenbusch(
+                        lat, ms[j], ms[j + 1], self.bc, params=sp,
+                        force_params=fp) for j in range(len(ms) - 1)]
+                    bases.append(stag_hmc.HisqFermion(
+                        lat, ms[-1], bc=self.bc, params=sp, force_params=fp))
+                for j, base in enumerate(bases):
+                    self._add_matter_term(terms, base,
+                                          f"{spec.kind}{i}_h{j}", spec)
+                continue
+            if spec.kind == "fermion":
+                base = stag_hmc.StagFermion(lat, spec.mass, self.bc, sp,
+                                            force_params=fp)
+            elif spec.kind == "boson":
+                base = stag_hmc.StagBoson(lat, spec.mass, self.bc, sp)
             elif spec.kind == "rooted":
-                raise NotImplementedError(
-                    "matter kind 'rooted' is not ported yet (ROADMAP A6)")
+                base = stag_hmc.StagRootedFermion(
+                    lat, spec.mass, nf=spec.nf, bc=self.bc,
+                    degree=spec.degree, params=sp, force_params=fp)
+            elif spec.kind == "hisq":
+                base = stag_hmc.HisqFermion(lat, spec.mass, bc=self.bc,
+                                            params=sp, force_params=fp)
             else:
                 raise ValueError(f"unknown matter kind {spec.kind!r}")
-            name = f"{spec.kind}{i}_m{spec.mass}"
-            smeared = spec.smeared and self.smear_coefs is not None
-            self.matter_bases.append((name, base, smeared))
-            s_act = base.make_action_fn()
-
-            def f_action(u, phi, s_act=s_act, smeared=smeared):
-                return s_act(self._smear(u) if smeared else u, phi)
-
-            def f_force(u, phi, f_action=f_action):
-                return force_from_action(lambda uu: f_action(uu, phi), u)
-
-            def f_chain(v, phi, s_act=s_act):
-                return _grad_at(lambda vv: s_act(vv, phi), v)
-
-            def f_heat(xi, u, base=base, smeared=smeared):
-                return base.heatbath_from_noise(
-                    xi, self._smear(u) if smeared else u)
-
-            terms.append(ActionTerm(name, f_action, f_force, spec.steps,
-                                    spec.scheme, heatbath=f_heat,
-                                    smeared=smeared,
-                                    chain_force=f_chain if smeared
-                                    else None, fg_form="hvp"))
-            self._at_links.append((s_act, base.heatbath_from_noise))
+            self._add_matter_term(terms, base,
+                                  f"{spec.kind}{i}_m{spec.mass}", spec)
         return terms
+
+    def _add_matter_term(self, terms: list[ActionTerm], base, name: str,
+                         spec: FermionSpec) -> None:
+        smeared = spec.smeared and self.smear_coefs is not None
+        self.matter_bases.append((name, base, smeared))
+        s_act = base.make_action_fn()
+
+        def f_action(u, phi, s_act=s_act, smeared=smeared):
+            return s_act(self._smear(u) if smeared else u, phi)
+
+        def f_force(u, phi, f_action=f_action):
+            return force_from_action(lambda uu: f_action(uu, phi), u)
+
+        def f_chain(v, phi, s_act=s_act):
+            return _grad_at(lambda vv: s_act(vv, phi), v)
+
+        def f_heat(xi, u, base=base, smeared=smeared):
+            return base.heatbath_from_noise(
+                xi, self._smear(u) if smeared else u)
+
+        terms.append(ActionTerm(name, f_action, f_force, spec.steps,
+                                spec.scheme, heatbath=f_heat,
+                                smeared=smeared,
+                                chain_force=f_chain if smeared else None,
+                                fg_form="hvp"))
+        self._at_links.append((s_act, base.heatbath_from_noise))
 
     def _links_per_term(self, u: torch.Tensor) -> list[torch.Tensor]:
         """Each term's links: smear(u) (computed once) or u."""

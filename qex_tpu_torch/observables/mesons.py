@@ -7,7 +7,7 @@ matrix G is
 
     C_G(t) = sum_x tr[ G S(x) G^dag g5 S(x)^dag g5 ].
 
-The staggered correlators wait for the batched solve (ROADMAP A5, A9).
+The staggered correlators are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """Staggered pseudofermion and Pauli-Villars actions for HMC (port of
 ``qex_tpu.physics.stag_hmc``: ``StagFermion``, ``StagBoson``, the HISQ
-pseudofermion ``HisqFermion`` and its operator routing ``_fast3_ops``).
+pseudofermion ``HisqFermion`` and its operator routing ``_fast3_ops``,
+the Hasenbusch ratios ``StagHasenbusch`` and ``HisqHasenbusch``, and the
+rooted ``StagRootedFermion``).
 
 All actions live on even sites through the hermitian positive definite
 normal operator ``A(m) = m^2 - D_eo D_oe``:
@@ -20,6 +22,10 @@ needs no backward.  Action values are float64 scalars.
 fattening once, solves on its output with kernel B2, and differentiates
 the plain ``staggered.d2ee3`` with respect to the fat and long links;
 autograd carries that gradient back through the two fat7 levels.
+
+``StagRootedFermion`` takes A^{-nf/4} and A^{+nf/8} as rational
+functions (``solvers.rational``), each from one multishift solve on
+kernel B1; its force is -sum_i r_i x_i^dag (dA) x_i.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..lattice import Lattice
 from ..ops import eo, linalg
 from ..solvers import cg, cgm
 from ..solvers.base import SolverParams, SolverStats
+from ..solvers.rational import RationalApprox, rational_approx
 from . import stag_fast as sf
 from . import stag_hisq as sh
 from . import stag_solve, staggered as st
@@ -430,3 +437,286 @@ class HisqFermion:
         xs, stats = cgm.cg_multishift(dd, sf.to_fast(b_e, self.lat), shifts,
                                       **kw)
         return [sf.from_fast(x, self.lat) for x in xs], stats
+
+
+# --- Hasenbusch ratios -------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StagHasenbusch:
+    """Hasenbusch mass-preconditioned ratio term on even sites,
+
+        S_h = phi^dag phi + (m2^2 - m1^2) phi^dag A(m1)^{-1} phi,
+
+    m1 the light (target) mass, m2 the heavy (preconditioner) mass.  The
+    heatbath phi = [D(m2)^{-1} D(m1) xi]_e of a full-lattice Gaussian xi
+    has the even-site covariance A(m1) A(m2)^{-1}; the force is
+    (m2^2 - m1^2) times the quad-inverse force at m1."""
+
+    lat: Lattice
+    m1: float
+    m2: float
+    bc: str = "pppa"
+    params: SolverParams = SolverParams(r2req=1e-12, maxits=2000, restarts=3)
+    force_params: SolverParams | None = None
+
+    def heatbath_from_noise(self, xi: torch.Tensor, u: torch.Tensor
+                            ) -> torch.Tensor:
+        s = st.new_stag_eo(self.lat, u, self.bc)
+        xi_e, xi_o = eo.pack(xi, self.lat.nd)
+        b_e = self.m1 * xi_e + st.dslash_eo(s, xi_o, parity_out=0)
+        b_o = self.m1 * xi_o + st.dslash_eo(s, xi_e, parity_out=1)
+        return stag_solve.solve_eo(s, b_e, b_o, self.m2, self.params)[0]
+
+    def heatbath(self, gen: torch.Generator, u: torch.Tensor
+                 ) -> torch.Tensor:
+        return self.heatbath_from_noise(gaussian_eta(gen, self.lat, u.dtype),
+                                        u)
+
+    def check_solve(self, u: torch.Tensor, phi: torch.Tensor
+                    ) -> tuple[int, float]:
+        """The light-mass solve at the action tolerance: (iterations,
+        true relative residual with the plain operator)."""
+        return StagFermion(self.lat, self.m1, self.bc,
+                           self.params).check_solve(u, phi)
+
+    def make_action_fn(self) -> Callable:
+        quad = make_quad_inv_action(self.lat, self.bc, self.m1,
+                                    self.params, self.force_params)
+        return _ratio_action(quad, self.m1, self.m2)
+
+    def action(self, u: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+        return self.make_action_fn()(u, phi)
+
+
+def _ratio_action(quad: Callable, m1: float, m2: float) -> Callable:
+    """S(u, phi) = |phi|^2 + (m2^2 - m1^2) quad(u, phi)."""
+    delta = m2 * m2 - m1 * m1
+
+    def s_act(u, phi):
+        return (linalg.redot(phi, phi, dtype=torch.float64)
+                + delta * quad(u, phi))
+
+    return s_act
+
+
+@dataclasses.dataclass(frozen=True)
+class HisqHasenbusch:
+    """Hasenbusch ratio over the HISQ (fat + naik) operator A3: the
+    algebra of :class:`StagHasenbusch` with A replaced by A3 on the
+    HISQ links, heatbath phi = [D3(m2)^{-1} D3(m1) xi]_e, solves on
+    kernel B2 through :class:`HisqFermion`."""
+
+    lat: Lattice
+    m1: float
+    m2: float
+    bc: str = "pppa"
+    proj_iters: int = 14
+    params: SolverParams = SolverParams(r2req=1e-12, maxits=2000, restarts=3)
+    force_params: SolverParams | None = None
+
+    def _ferm(self, m: float) -> HisqFermion:
+        return HisqFermion(self.lat, m, self.bc, self.proj_iters,
+                           self.params, self.force_params)
+
+    def heatbath_from_noise(self, xi: torch.Tensor, u: torch.Tensor
+                            ) -> torch.Tensor:
+        f1 = self._ferm(self.m1)
+        with torch.no_grad():
+            links = f1._links(u)
+        s3 = st.new_stag3_eo(self.lat, *links)
+        xi_e, xi_o = eo.pack(xi, self.lat.nd)
+        b_e = self.m1 * xi_e + st.dslash3_eo(s3, xi_o, parity_out=0)
+        b_o = self.m1 * xi_o + st.dslash3_eo(s3, xi_e, parity_out=1)
+        # phi_e = [D3(m2)^{-1} b]_e through the even-site normal system
+        rhs = self.m2 * b_e - st.dslash3_eo(s3, b_o, parity_out=0)
+        return f1.solve_ee(u, rhs, m=self.m2, links=links)[0]
+
+    def heatbath(self, gen: torch.Generator, u: torch.Tensor
+                 ) -> torch.Tensor:
+        return self.heatbath_from_noise(gaussian_eta(gen, self.lat, u.dtype),
+                                        u)
+
+    def check_solve(self, u: torch.Tensor, phi: torch.Tensor
+                    ) -> tuple[int, float]:
+        return self._ferm(self.m1).check_solve(u, phi)
+
+    def make_action_fn(self) -> Callable:
+        return _ratio_action(self._ferm(self.m1).make_action_fn(), self.m1,
+                             self.m2)
+
+    def action(self, u: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+        return self.make_action_fn()(u, phi)
+
+
+# --- rooted staggered fermion ------------------------------------------------
+
+class _RootedQuad(torch.autograd.Function):
+    """S(u, phi) = c0 |phi|^2 + sum_i r_i Re<phi, x_i>, x_i = (A(u) +
+    s_i)^{-1} phi from one multishift solve, with the implicit-function
+    backward -sum_i r_i Re<x_i, dA x_i>.  Recorded for a second
+    derivative, each x_i is a :class:`_Solved` whose tangent takes one
+    solve of its own shifted system."""
+
+    @staticmethod
+    def forward(ctx, u, phi, ferm, ra, params):
+        xs = ferm._multishift(u, phi, ra.poles, params)[0]
+        ctx.save_for_backward(u, phi)
+        ctx.xs, ctx.ferm, ctx.ra, ctx.params = xs, ferm, ra, params
+        s = ra.c0 * linalg.norm2(phi, torch.float64)
+        for r, x in zip(ra.residues, xs):
+            s = s + r * linalg.redot(phi, x, dtype=torch.float64)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        u, phi = ctx.saved_tensors
+        xs, ferm, ra = ctx.xs, ctx.ferm, ctx.ra
+        lat, bc, m = ferm.lat, ferm.bc, ferm.m
+        gu = gphi = None
+
+        def quad(uu, xs):
+            s = st.new_stag_eo(lat, uu, bc)
+            acc = 0.0
+            for r, x in zip(ra.residues, xs):
+                acc = acc - r * linalg.redot(x, st.d2ee(s, x, m),
+                                             dtype=torch.float64)
+            return acc
+
+        if torch.is_grad_enabled():
+            params = ctx.params
+
+            def apply_a(links, v):      # the shift drops out of d/dlinks
+                return _a_apply(lat, bc, links[0], v, m)
+
+            def shifted_solve(shift):
+                # one shift of the action's own multishift solve, so the
+                # tangent meets r2req as x_i does, with no restart floor
+                def solve(links, b):
+                    return ferm._multishift(links[0], b, [shift],
+                                            params)[0][0]
+                return solve
+
+            xs = [_Solved.apply(phi, x, apply_a, shifted_solve(p), u)
+                  for x, p in zip(xs, ra.poles)]
+            gu = torch.func.grad(quad)(u, xs)
+            gu = g.to(gu.real.dtype) * gu
+        elif ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                uu = u.detach().requires_grad_(True)
+                (gu,) = torch.autograd.grad(quad(uu, xs), uu)
+            gu = g.to(gu.real.dtype) * gu
+        if ctx.needs_input_grad[1]:
+            acc = ra.c0 * phi
+            for r, x in zip(ra.residues, xs):
+                acc = acc + r * x
+            gphi = g.to(phi.real.dtype) * (2.0 * acc)
+        return gu, gphi, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class StagRootedFermion:
+    """Rooted staggered fermion S = phi^dag A(m)^{-nf/4} phi.
+
+    Rational approximations (``solvers.rational``) in partial-fraction
+    form, each evaluated by one multishift CG on A(m) = m^2 - D_eo D_oe
+    (kernel B1 on the card, the plain fast-layout operator on the
+    host): the heatbath phi = A^{+nf/8} xi_e, so Cov(phi) = A^{nf/4};
+    the action S = c0 |phi|^2 + sum_i r_i phi^dag (A + s_i)^{-1} phi
+    of A^{-nf/4}.  The approximations cover the analytic spectral bound
+    [m^2, m^2 + nd^2] of A."""
+
+    lat: Lattice
+    m: float
+    nf: int = 1
+    bc: str = "pppa"
+    degree: int = 10
+    params: SolverParams = SolverParams(r2req=1e-12, maxits=2000, restarts=1)
+    force_params: SolverParams | None = None
+
+    def _spectral_range(self) -> tuple[float, float]:
+        # |eig(D_eo D_oe)| <= nd^2 for the staggered hop with its 1/2
+        lo = self.m * self.m
+        return lo, lo + float(self.lat.nd ** 2)
+
+    def calibrate_spectral_range(self, u: torch.Tensor, safety: float = 1.2):
+        """The JAX package tightens the interval to a Lanczos bracket of
+        A's spectrum, which needs its eigensolvers."""
+        raise NotImplementedError(
+            "calibrate_spectral_range needs the Lanczos eigensolvers, "
+            "which are not ported yet (ROADMAP A9)")
+
+    def _approx(self, num: int, den: int) -> RationalApprox:
+        lo, hi = self._spectral_range()
+        return rational_approx(num, den, lo, hi, self.degree)
+
+    def _shifted_op(self, u: torch.Tensor, b_e: torch.Tensor) -> tuple:
+        """(A(m) on the layout the solves run in, b_e in that layout,
+        the map back to even-site vectors): the fast layout on 4-d
+        lattices (:func:`stag_solve.fast_ops`: kernel B1 on the card)."""
+        s = st.new_stag_eo(self.lat, u, self.bc)
+        mm = self.m * self.m
+        if self.lat.nd != 4:
+            return (lambda x: st.d2dd(s, x, parity=0) + mm * x), b_e, \
+                (lambda x: x)
+        bf = sf.to_fast(b_e, self.lat)
+        base, _ = stag_solve.fast_ops(sf.new_fast(s), bf)
+        return (lambda x: base(x) + mm * x), bf, \
+            partial(sf.from_fast, lat=self.lat)
+
+    @torch.no_grad()
+    def _multishift(self, u: torch.Tensor, phi: torch.Tensor, shifts,
+                    sp: SolverParams) -> tuple[list[torch.Tensor],
+                                               SolverStats]:
+        """(A + s_i)^{-1} phi for every shift, one multishift CG."""
+        sp.check_supported()
+        op, b, back = self._shifted_op(u, phi)
+        xs, stats = cgm.cg_multishift(op, b, list(shifts), r2req=sp.r2req,
+                                      maxits=sp.maxits)
+        return [back(x) for x in xs], stats
+
+    @torch.no_grad()
+    def heatbath_from_noise(self, xi: torch.Tensor, u: torch.Tensor
+                            ) -> torch.Tensor:
+        """phi = A^{+nf/8} xi_e."""
+        self.params.check_supported()
+        xi_e, _ = eo.pack(xi, self.lat.nd)
+        op, b, back = self._shifted_op(u, xi_e)
+        phi, _ = self._approx(self.nf, 8).apply(
+            op, b, r2req=self.params.r2req, maxits=self.params.maxits)
+        return back(phi)
+
+    def heatbath(self, gen: torch.Generator, u: torch.Tensor
+                 ) -> torch.Tensor:
+        return self.heatbath_from_noise(gaussian_eta(gen, self.lat, u.dtype),
+                                        u)
+
+    def check_solve(self, u: torch.Tensor, phi: torch.Tensor
+                    ) -> tuple[int, float]:
+        """The action's multishift solve at the action tolerance:
+        (iterations, true relative residual of the smallest shift with
+        the plain operator)."""
+        ra = self._approx(-self.nf, 4)
+        xs, stats = self._multishift(u, phi, ra.poles, self.params)
+        i0 = min(range(len(ra.poles)), key=lambda i: ra.poles[i])
+        with torch.no_grad():
+            s = st.new_stag_eo(self.lat, u, self.bc)
+            r = st.d2ee(s, xs[i0], self.m) + ra.poles[i0] * xs[i0] - phi
+        return stats.iterations, float(linalg.norm2(r) / linalg.norm2(phi))
+
+    def make_action_fn(self) -> Callable:
+        """Differentiable S(u, phi); the solve runs at ``force_params``
+        while a gradient with respect to u is recorded (MD forces) and
+        at ``params`` otherwise (Hamiltonian values)."""
+        ra = self._approx(-self.nf, 4)
+        fparams = (self.force_params if self.force_params is not None
+                   else self.params)
+
+        def s_act(u, phi):
+            grad = torch.is_grad_enabled() and u.requires_grad
+            return _RootedQuad.apply(u, phi, self, ra,
+                                     fparams if grad else self.params)
+
+        return s_act
+
+    def action(self, u: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+        return self.make_action_fn()(u, phi)

@@ -1,5 +1,6 @@
 """Conjugate gradient with defect-correction restarts (port of
-``qex_tpu.solvers.cg``: ``cg_solve`` and ``cg_solve_restarted``).
+``qex_tpu.solvers.cg``: ``cg_solve``, ``cg_solve_restarted`` and
+``cg_solve_precon``).
 
 The JAX ``lax.while_loop`` becomes a Python loop.  Scalars stay on the
 device; the stop test reads ``|r|^2`` to the host once per iteration,
@@ -19,13 +20,17 @@ from .base import SolverStats
 Op = Callable[[torch.Tensor], torch.Tensor]
 
 
-def cg_solve(op: Op, b: torch.Tensor, *, r2req: float = 1e-12,
-             maxits: int = 1000) -> tuple[torch.Tensor, SolverStats]:
-    """Plain CG from x = 0 on a hermitian positive definite operator;
-    stops when |r|^2 / |b|^2 <= r2req or after maxits iterations."""
-    x = torch.zeros_like(b)
+def cg_solve(op: Op, b: torch.Tensor, x0: torch.Tensor | None = None, *,
+             r2req: float = 1e-12, maxits: int = 1000
+             ) -> tuple[torch.Tensor, SolverStats]:
+    """Plain CG on a hermitian positive definite operator, from ``x0``
+    (default 0); stops when |r|^2 / |b|^2 <= r2req or after maxits
+    iterations."""
     b2 = linalg.norm2(b)
-    r = b
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x, r = x0, b - op(x0)
     p = r
     r2 = linalg.norm2(r)
     stop = float(r2req * b2)
@@ -73,3 +78,32 @@ def cg_solve_restarted(op: Op, b: torch.Tensor, *, r2req: float = 1e-12,
         its += st.iterations
     r2_final = float(linalg.norm2(b - op_true(x))) / b2
     return x, SolverStats(iterations=its, r2=r2_final)
+
+
+def cg_solve_precon(op: Op, b: torch.Tensor, precon: Op, *,
+                    r2req: float = 1e-12, maxits: int = 1000
+                    ) -> tuple[torch.Tensor, SolverStats]:
+    """Preconditioned CG from x = 0 with a hermitian preconditioner
+    ``precon`` ~ A^{-1}; stops on the unpreconditioned |r|^2 / |b|^2 <=
+    r2req or after maxits iterations."""
+    x = torch.zeros_like(b)
+    b2 = linalg.norm2(b)
+    r = b
+    z = precon(r)
+    p = z
+    rz = linalg.redot(r, z)
+    stop = float(r2req * b2)
+    r2_host = float(linalg.norm2(r))
+    k = 0
+    while r2_host > stop and k < maxits:
+        ap = op(p)
+        alpha = rz / linalg.redot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precon(r)
+        rznew = linalg.redot(r, z)
+        p = z + (rznew / rz) * p
+        rz = rznew
+        r2_host = float(linalg.norm2(r))
+        k += 1
+    return x, SolverStats(iterations=k, r2=r2_host / float(b2))

@@ -1,5 +1,5 @@
 """Multishift (multi-mass) conjugate gradient (port of
-``qex_tpu.solvers.cgm.cg_multishift``).
+``qex_tpu.solvers.cgm``: ``cg_multishift`` and ``cg_multishift_refined``).
 
 Solves ``(A + sigma_i) x_i = b`` for every shift sigma_i from one Krylov
 space of the base operator A (B. Jegerlehner, hep-lat/9612014).  The
@@ -83,3 +83,69 @@ def cg_multishift(base_op: Callable[[torch.Tensor], torch.Tensor],
         worst = float((zeta * zeta).max() * rho)
     return [x[i] for i in range(ns)], SolverStats(iterations=k,
                                                   r2=worst / b2)
+
+
+def cg_multishift_refined(base_sloppy: Callable[[torch.Tensor], torch.Tensor],
+                          base_true: Callable[[torch.Tensor], torch.Tensor],
+                          b: torch.Tensor, shifts: Sequence[float], *,
+                          r2req: float = 1e-12, maxits: int = 2000,
+                          sloppy_r2req: float = 1e-8,
+                          refine_restarts: int = 2
+                          ) -> tuple[list[torch.Tensor], SolverStats]:
+    """Mixed-precision multishift: one joint pass on ``base_sloppy`` to
+    max(r2req, sloppy_r2req), then per-shift defect correction against
+    ``base_true``.
+
+    The shifted iterates share one Krylov space, so the joint pass
+    cannot restart; each shift is refined after it by
+    ``cg_solve_restarted`` with the sloppy operator inside true-residual
+    restarts, its inner floor at ``sloppy_r2req`` (the sloppy operator's
+    achievable residual).  Where the two operators differ, a closure on
+    the true operator aimed at the original system's absolute target
+    (``stop2 = r2req |b|^2``) follows; it does no iteration where the
+    sloppy refinement already met it.  Two monotone guards keep a stage
+    that made a shift's defect worse from poisoning the next: the joint
+    pass's x_i is dropped if its defect exceeds |b|, and the sloppy
+    correction if it grew the defect.  ``r2`` is the worst shift's true
+    relative residual on ``base_true``."""
+    from . import cg as cgmod
+
+    xs, st0 = cg_multishift(base_sloppy, b, shifts,
+                            r2req=max(r2req, sloppy_r2req), maxits=maxits)
+    # the defect after the joint pass is ~sloppy_r2req |b|^2, so this
+    # relative target lands the final residual at ~r2req |b|^2 with a
+    # decade to spare
+    r2_ref = min(1.0, 0.1 * r2req / max(r2req, sloppy_r2req))
+    total = st0.iterations
+    out, worst = [], 0.0
+    b2 = float(linalg.norm2(b))
+    for i, s in enumerate(shifts):
+        def op_t(v, s=s):
+            return base_true(v) + s * v
+
+        def op_s(v, s=s):
+            return base_sloppy(v) + s * v
+
+        d = b - op_t(xs[i])
+        if float(linalg.norm2(d)) > b2:
+            xs[i], d = torch.zeros_like(b), b
+        e, sti = cgmod.cg_solve_restarted(
+            op_s, d, r2req=r2_ref, maxits=maxits, restarts=refine_restarts,
+            op_true=op_t, inner_r2req_floor=max(r2_ref * 0.1, sloppy_r2req))
+        xi = xs[i] + e
+        total += sti.iterations
+        if base_sloppy is not base_true:
+            # refinement with a sloppy inner operator converges only
+            # while eps_sloppy * kappa(A + s) < 1; the true-operator
+            # closure finishes the shifts where it stalled
+            d2 = b - op_t(xi)
+            if float(linalg.norm2(d2)) > float(linalg.norm2(d)):
+                xi, d2 = xs[i], d
+            e2, st2 = cgmod.cg_solve_restarted(
+                op_t, d2, r2req=r2_ref, maxits=maxits,
+                restarts=refine_restarts, stop2=r2req * b2)
+            xi = xi + e2
+            total += st2.iterations
+        out.append(xi)
+        worst = max(worst, float(linalg.norm2(b - op_t(xi))) / b2)
+    return out, SolverStats(iterations=total, r2=worst)

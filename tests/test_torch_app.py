@@ -82,6 +82,24 @@ def test_build_theory_matches_reference(overrides):
     assert (th.tau, th.bc) == (ref.tau, ref.bc)
 
 
+@pytest.mark.parametrize("nf", [2, 3])
+def test_build_theory_rooted_matches_reference(nf):
+    """Nf not a multiple of 4 builds one rooted term, as the JAX app."""
+    kv = {"ns": "4", "nt": "4", "nf": str(nf)}
+    cfg = HMCConfig.from_xml(DECK).override(dict(kv))
+    jcfg = JHMCConfig.from_xml(DECK).override(dict(kv))
+    th = app.build_theory(cfg, Lattice(cfg.dims))
+    ref = japp.build_theory(jcfg, JLattice(jcfg.dims), jnp.complex128)
+    assert ([(x.name, x.steps, x.scheme, x.smeared) for x in th.terms]
+            == [(x.name, x.steps, x.scheme, x.smeared) for x in ref.terms])
+    ((_, base, _), _pv) = th.matter_bases
+    ((_, jbase, _), _jpv) = ref.matter_bases
+    assert type(base).__name__ == type(jbase).__name__ == \
+        "StagRootedFermion"
+    assert (base.m, base.nf, base.degree) == (jbase.m, jbase.nf,
+                                              jbase.degree) == (0.05, nf, 10)
+
+
 def test_checkpoints_interchange_exactly(tmp_path):
     lat = Lattice((4, 4, 4, 4))
     u = ginibre(np.random.default_rng(3), lat.gauge_shape())
@@ -134,7 +152,7 @@ def test_app_runs_on_the_cpu_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["-rank_geom=1,1,1,2"], "A11"), (["-pbp_freq=1"], "A9"),
-    (["-nf=2"], "A6"), (["--profile"], "split-step"),
+    (["--profile"], "split-step"),
 ])
 def test_unported_app_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -5,8 +5,8 @@ pre-shifted links exactly (float32 and bfloat16) and their plain hop
 against the JAX Pallas kernel in interpret mode at 8x4x4x4 (float32
 arithmetic, hence squared deviation 1e-12); cg_multishift and
 HisqFermion.solve_multi (same iterations, solutions to 1e-10); the HISQ
-fermion's heatbath, action and force (1e-9) with injected noise; the
-sloppy solve on bf16-rounded links; and one LatticeFieldTheory
+fermion's and the HISQ Hasenbusch ratio's heatbath, action and force
+(1e-9) with injected noise; the sloppy solve on bf16-rounded links; and one LatticeFieldTheory
 trajectory with a "hisq" term and injected draws (fields 1e-9, dH
 1e-8).  The CUDA kernels are checked against the plain hop on a card by
 tests/test_torch_kernels_gpu.py."""
@@ -52,6 +52,7 @@ from qex_tpu_torch.solvers.base import SolverParams
 DIMS4 = (4, 4, 4, 4)
 DIMS8 = (8, 4, 4, 8)
 TOL = 1e-12
+HMASS = 0.8                 # the HISQ Hasenbusch ratio's heavy mass
 
 
 def _fast_shape(dims):
@@ -288,13 +289,28 @@ def hisq_refs():
         return xs, stats.iterations
 
     xs, its = compile_ref(multi, u, b)(u, b)
+
+    # the HISQ Hasenbusch ratio over the fermion's mass: heatbath from a
+    # key (its noise returned for the port), action and force there
+    hasen = jsh.HisqHasenbusch(jlat, 0.4, HMASS, "pppa",
+                               params=args["solver_params"])
+
+    def ratio(kh, u):
+        phi = hasen.heatbath(kh, u)
+        s_act = hasen.make_action_fn()
+        return (jsh.gaussian_eta(kh, jlat, dt), phi, s_act(u, phi),
+                jsh.fermion_force(s_act, u, phi))
+
+    kh = jax.random.PRNGKey(23)
+    hasenbusch = compile_ref(ratio, kh, u)(kh, u)
     return dict(args=args, u=np.asarray(u), p=np.asarray(p),
                 xis=[None if x is None else np.asarray(x) for x in xis],
                 phis=[None if f is None else np.asarray(f) for f in phis],
                 action=act, force=np.asarray(terms[1].force(u, phis[1])),
                 h_old=h_old, u1=np.asarray(u1), p1=np.asarray(p1),
                 h_new=h_new, jterms=jth.terms, masses=masses, b=b,
-                xs=[np.asarray(x) for x in xs], its=int(its))
+                xs=[np.asarray(x) for x in xs], its=int(its),
+                hasenbusch=[np.asarray(x) for x in hasenbusch])
 
 
 def _fermion(r, **kw):
@@ -322,6 +338,28 @@ def test_hisq_force_matches_reference(hisq_refs):
     phi = t(r["phis"][1])
     frc = force_from_action(lambda uu: ferm.action(uu, phi), t(r["u"]))
     assert rel(n(frc), r["force"]) < 1e-9
+
+
+def test_hisq_hasenbusch_matches_reference(hisq_refs):
+    """HisqHasenbusch (kernel B2 on the card): heatbath from the JAX
+    noise, action and force at the JAX phi against JAX's (1e-9), and
+    the solver report of its light-mass solve."""
+    r = hisq_refs
+    xi, heat, act, frc = r["hasenbusch"]
+    term = stag_hmc.HisqHasenbusch(
+        Lattice(DIMS4), 0.4, HMASS, "pppa",
+        params=convert._solver_params(r["args"]["solver_params"]))
+    u = t(r["u"])
+    phi = term.heatbath_from_noise(t(xi), u)
+    assert rel(n(phi), heat) < 1e-9
+    s_act = term.make_action_fn()
+    s = s_act(u, t(heat))
+    assert s.dtype == torch.float64
+    assert abs(float(s) - float(act)) < 1e-9 * abs(float(act))
+    assert rel(n(force_from_action(lambda w: s_act(w, t(heat)), u)), frc) \
+        < 1e-9
+    its, res = term.check_solve(u, t(heat))
+    assert its > 0 and res < 1e-18
 
 
 def test_hisq_solve_multi(hisq_refs):
@@ -409,14 +447,23 @@ def test_hisq_trajectory_matches_reference(hisq_refs, hisq_port):
 
 
 def test_hisq_solver_report_and_hasenbusch_raises(hisq_refs, hisq_port):
+    """The solver report of the "hisq" theory; Hasenbusch masses on a
+    HISQ field, once refused, build the JAX theory's chain (a ratio
+    term and the plain field at the heavy mass), each with a solver
+    report."""
     th = hisq_port["th"]
     rep = th.solver_report(torch.Generator().manual_seed(1), t(hisq_refs["u"]))
     (its, res), = rep.values()
     assert its > 0 and res < 1e-18
-    with pytest.raises(NotImplementedError, match="A2"):
-        convert.theory_from_reference(**dict(
-            hisq_refs["args"], fermions=[JFermionSpec(
-                "hisq", 0.4, hmasses=(0.8,))]))
+    args = dict(hisq_refs["args"],
+                fermions=[JFermionSpec("hisq", 0.4, hmasses=(HMASS,))])
+    th = convert.theory_from_reference(**args)
+    assert [(x.name, x.steps) for x in th.terms] == \
+        [(x.name, x.steps) for x in JTheory(**args).terms]
+    rep = th.solver_report(torch.Generator().manual_seed(1), t(hisq_refs["u"]))
+    assert list(rep) == ["hisq0_h0", "hisq0_h1"]
+    for its, res in rep.values():
+        assert its > 0 and res < 1e-18
 
 
 def test_hisq_forces_tool_smooth_start_stays_finite():

@@ -31,7 +31,7 @@ from qex_tpu_torch import convert
 from qex_tpu_torch.gauge import loops
 from qex_tpu_torch.hmc import hmc, integrators
 from qex_tpu_torch.mcmc import md
-from qex_tpu_torch.mcmc.theory import FermionSpec, LatticeFieldTheory
+from qex_tpu_torch.mcmc.theory import LatticeFieldTheory
 
 DIMS = (4, 4, 4, 4)
 DT = jnp.complex128
@@ -192,16 +192,22 @@ def test_kinetic_energy_and_update(slice_refs):
 
 
 def test_unported_theory_options_raise(slice_refs):
+    """A smearing the port does not know raises; the rooted kind and
+    Hasenbusch masses (fermion and HISQ), once refused, build the JAX
+    theory's terms."""
     args = dict(slice_refs["args"])
     with pytest.raises(TypeError, match="smear"):
         convert.theory_from_reference(**dict(args, smear=object()))
-    for spec in (FermionSpec("fermion", 0.2, hmasses=(0.4,)),
-                 FermionSpec("rooted", 0.2),
-                 FermionSpec("hisq", 0.2, hmasses=(0.4,))):
-        with pytest.raises(NotImplementedError):
-            LatticeFieldTheory(convert.Lattice(DIMS),
-                               convert._gauge_spec(args["gauge"]),
-                               fermions=[spec])
+    for spec in (JFermionSpec("fermion", 0.2, hmasses=(0.4,)),
+                 JFermionSpec("rooted", 0.2, nf=2),
+                 JFermionSpec("hisq", 0.2, hmasses=(0.4,))):
+        sargs = dict(args, fermions=[spec])
+        th = convert.theory_from_reference(**sargs)
+        ref = JTheory(**sargs)
+        assert [(x.name, x.steps, x.scheme) for x in th.terms] == \
+            [(x.name, x.steps, x.scheme) for x in ref.terms]
+        assert [type(b).__name__ for _n, b, _s in th.matter_bases] == \
+            [type(b).__name__ for _n, b, _s in ref.matter_bases]
 
 
 def test_gauge_from_reference_layout(slice_refs):
