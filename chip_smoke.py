@@ -112,10 +112,37 @@ Phases, each printed as one JSON line:
  28. northstar32: B1 against its plain twin at 32^3x64 (TOL_KERNEL),
      then one hmc_step of config 4 as run (nHYP, exp_northstar32.py
      :45-56) at that volume from a cold start, with the split and the
-     peak memory.
+     peak memory;
+ then the measurement tier:
+ 29. eigs_hisq: exp_eigs24.py's run at 24^3x48 (expm(0.7 tah) links,
+     HISQ fattening): the 16 lowest eigenpairs of the HISQ normal
+     operator on B2 (degree 30, tol 1e-5, 25 restart cycles) with their
+     true residuals (at most EIGS_MAX_RESID, as reported and recomputed
+     through B2's plain twin in complex128) and each eigenvalue against
+     its vector's Rayleigh quotient through that twin (EIGS_RQ_REL plus
+     the float32 rounding floor); B2 against its plain twin on these
+     links (TOL_KERNEL); two deflated inverse-iteration passes on
+     that basis (their largest residual no larger); CG against deflated
+     CG at m=0.05, r2req 1e-10, each to a true r^2 <= 10 x r2req, with
+     deflation_pays' decision;
+ 30. eigs_stag: at 24^4 on expm(0.3 tah) links, 16 eigenpairs of the
+     plain normal operator on B1, svd_stag's 8 triplets of D_oe on B1's
+     single-parity hop (both converged; sigma^2 against the
+     eigenvalues, TOL_SIGMA2),
+     the rooted fermion's calibrated spectral range (inside [m^2/2,
+     1.2 (m^2 + 16)]) and the rational approximations on it and on the
+     analytic bound;
+ 31. measure: those links through io/lime (written, read back bit for
+     bit, checksum verified), then the measure app on the file (mesons,
+     z4 condensate with 4 noises and eo dilution, Wilson mesons; the
+     plaquette to 1e-6, the pions and the condensate positive) and the
+     eigs app (-nev:8 with its deflation line); then B3 against its plain
+     twin on the links read back, at the app's mass and bc (TOL_KERNEL);
+ 32. app_pbp: staghmc_spv on the config-4 deck, one trajectory with
+     pbp_freq=1 (a positive MEASpbp).
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28) and read just after
-it; 19-21 and the pure-gauge apps of 22 must launch no kernel,
+7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28-32) and read just
+after it; 19-21 and the pure-gauge apps of 22 must launch no kernel,
 staghmc_spv B1.  Then
 the card line, the kernels summary and, last, the ok line.  Any failed
 check raises, so the script exits non-zero and prints no ok line;
@@ -265,6 +292,30 @@ MULTI_R2REQ = 1e-10
 RHMC_NTRAJ = 3
 # phase 28: exp_northstar32.py's volume
 NORTHSTAR_DIMS = (32, 32, 32, 64)
+# phase 29: exp_eigs24.py's eigensolve (its :64-93): 16 pairs, degree 30,
+# tol 1e-5, 25 restart cycles, then CG against deflated CG at m = 0.05
+EIGS_DIMS = (24, 24, 24, 48)
+EIGS_N, EIGS_DEGREE, EIGS_TOL, EIGS_RESTARTS = 16, 30, 1e-5, 25
+EIGS_DEFLATE_MASS, EIGS_R2REQ = 0.05, 1e-10
+EIGS_MAX_RESID = 2e-3
+# An eigenvalue is the Rayleigh quotient of its vector with A v computed
+# in float32 on the kernel; recomputed in complex128 it moves by the
+# projection on v of that rounding, which is ~eps_f32 |A| per component
+# with |A| <= the window's top, and independent from component to
+# component, so ~eps_f32 |A| / sqrt(N) on a unit vector of N complex
+# components: each eigenvalue may move by that plus 1e-6 of itself.
+EIGS_RQ_REL = 1e-6
+# phases 30-31: expm(0.3 tah) links at 24^4 (smooth enough for the
+# Wilson solves at m = 0.05).  The SVD's 8 lowest triplets of D_oe, whose
+# squares must match the eigensolve's lowest eigenvalues (relative): on
+# these links the low band is a dense cluster (16 eigenvalues within
+# 16%), which the unfiltered Golub-Kahan iteration resolves slowly, so
+# it takes a larger basis and more restarts than its defaults (with 30
+# vectors, 100 cycles stopped at a relative residual of 4e-3 with the
+# 5th-8th off by 0.2-3%; with 96, 34 cycles converged on an H100)
+MEAS_START = 0.3
+SVD_N, SVD_M, SVD_TOL, SVD_RESTARTS = 8, 96, 1e-6, 300
+TOL_SIGMA2 = 1e-3
 
 
 def odd_generator():
@@ -2085,6 +2136,303 @@ def phase_northstar32(gen) -> dict:
     return res
 
 
+# --- the measurement tier ----------------------------------------------------
+
+def _even_fast_plain(kind: str, op):
+    """A(m) x = m^2 x - D D x through the plain twin of the 8- or
+    16-term kernel, in x's precision (complex128 on the card for the
+    checks)."""
+    _hop, plain, _d2ee = hop_fns(kind)
+
+    def apply(x, m: float = 0.0):
+        return plain(op, plain(op, x, 1), 0, x_fuse=x, m2=m * m)
+    return apply
+
+
+def _rq_check(apply64, vecs_fast) -> tuple[list, list]:
+    """Rayleigh quotients and true residual norms of unit fast-layout
+    vectors under a complex128 operator."""
+    ths, rs = [], []
+    for v in vecs_fast:
+        v = v.to(torch.complex128)
+        v = v / torch.linalg.vector_norm(v)
+        av = apply64(v)
+        th = float(torch.vdot(v.flatten(), av.flatten()).real)
+        ths.append(th)
+        rs.append(float(torch.linalg.vector_norm(av - th * v)))
+    return ths, rs
+
+
+def phase_eigs_hisq(gen) -> dict:
+    """exp_eigs24.py's run (ROUND3.md:120-137) at full size: 16 lowest
+    eigenpairs of the HISQ normal operator at 24^3x48 on B2, then two
+    deflated inverse-iteration passes on that basis, then CG against
+    deflated CG at m = 0.05."""
+    from qex_tpu_torch.eigens import hisqev
+    from qex_tpu_torch.eigens.refine import refine_inverse_dev
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.physics import staggered as st
+    from qex_tpu_torch.solvers import cg
+    from qex_tpu_torch.solvers.deflate import deflated_cg, deflation_pays
+    lat = Lattice(EIGS_DIMS)
+    u = random_links(lat, gen)
+    links = hisq_links(lat, u)
+    del u
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                         # count the main path only
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = hisqev.stag_eigs(lat, None, EIGS_N, links=links,
+                               degree=EIGS_DEGREE, tol=EIGS_TOL,
+                               max_restarts=EIGS_RESTARTS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    op, example = hisqev._normal_op(lat, None, "pppa", True, links)
+    vecs = sf.to_fast(res.vecs, lat)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref_evals, ref_vecs, ref_resids, _ = refine_inverse_dev(op, vecs,
+                                                                iters=2)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    # deflation A/B on A(m) = m^2 - D D, the refined basis
+    m = EIGS_DEFLATE_MASS
+    op_m, _ = hisqev._normal_op(lat, None, "pppa", True, links, m=m)
+    b = torch.randn(example.shape, dtype=example.dtype, generator=gen,
+                    device=example.device)
+    ab = {}
+    for route in ("plain", "deflated"):
+        def solve():
+            if route == "plain":
+                return cg.cg_solve_restarted(op_m, b, r2req=EIGS_R2REQ,
+                                             maxits=3000, restarts=2)
+            return deflated_cg(op_m, b, ref_evals + m * m, ref_vecs,
+                               r2req=EIGS_R2REQ, maxits=3000, restarts=2)
+        (x, stats), s_ = timed_once_s(solve)
+        ab[route] = {"iterations": stats.iterations, "seconds": s_, "x": x}
+    launches = read_counts()
+    # the checks: B2's plain twin in complex128 on the card
+    p16 = sh.new_hisq16(sf.new_fast3(st.new_stag3_eo(lat, *links)))
+    kcheck = compare_hop("hisq16_dslash", p16, fast_vector(lat, gen))
+    apply64 = _even_fast_plain("hisq16", p16)
+    rq, true_r = _rq_check(apply64, vecs)
+    b64 = b.to(torch.complex128)
+    for route in ab:
+        x64 = ab[route].pop("x").to(torch.complex128)
+        ab[route]["true_rel_r2"] = rel2(apply64(x64, m), b64)
+    pays = deflation_pays(res.evals, m)
+    rq_dev = [abs(a - b_) for a, b_ in zip(rq, res.evals)]
+    rq_floor = 2.0 ** -24 * res.info["window"][1] / math.sqrt(vecs[0].numel())
+    tol_rq = [EIGS_RQ_REL * abs(e) + rq_floor for e in res.evals]
+    out = {"phase": "eigs_hisq", "dims": list(lat.dims), "n": EIGS_N,
+           "degree": res.info["degree"], "tol": EIGS_TOL,
+           "max_restarts": EIGS_RESTARTS, "evals": res.evals.tolist(),
+           "svals": res.svals.tolist(), "true_residuals": res.resids.tolist(),
+           "matvecs_A": res.info["matvecs_A"], "cycles": res.info["cycles"],
+           "converged": res.info["converged"],
+           "window": list(res.info["window"]), "seconds": secs,
+           "peak_mem_gib": peak,
+           "rayleigh_c128_abs_dev": rq_dev, "rayleigh_tol": tol_rq,
+           "true_residuals_c128": true_r,
+           "hisq16_vs_plain": kcheck,
+           "refined": {"iters": 2, "seconds": refine_s,
+                       "evals": ref_evals.tolist(),
+                       "true_residuals": ref_resids.tolist()},
+           "deflation_ab": {"m": m, "r2req": EIGS_R2REQ, **ab,
+                            "deflation_pays": pays},
+           "kernel_launches": launches}
+    emit(out)
+    if not all(math.isfinite(r) and r <= EIGS_MAX_RESID for r in res.resids):
+        raise AssertionError(f"eigs_hisq: true residuals {res.resids}")
+    if not max(ref_resids) <= max(res.resids):
+        raise AssertionError(f"eigs_hisq: refined residuals {ref_resids} "
+                             f"above {res.resids}")
+    if not all(d <= tl for d, tl in zip(rq_dev, tol_rq)):
+        raise AssertionError(f"eigs_hisq: eigenvalues against their "
+                             f"Rayleigh quotients {rq_dev}, limits {tol_rq}")
+    if not all(math.isfinite(r) and r <= EIGS_MAX_RESID for r in true_r):
+        raise AssertionError(f"eigs_hisq: complex128 true residuals "
+                             f"{true_r}")
+    for route, rec in ab.items():
+        if not rec["true_rel_r2"] <= 10 * EIGS_R2REQ:
+            raise AssertionError(f"eigs_hisq: {route} CG true r2 "
+                                 f"{rec['true_rel_r2']}")
+    if launches["hisq16_dslash"] <= 0:
+        raise AssertionError("eigs_hisq: B2 never launched")
+    return out
+
+
+def phase_eigs_stag(gen) -> tuple[dict, torch.Tensor]:
+    """Plain-staggered eigenpairs (B1) and the Golub-Kahan SVD of D_oe
+    (B1's single-parity hop) at 24^4 on expm(0.3 tah) links, and the
+    rooted fermion's calibrated spectral range; returns the links for
+    the measure phase."""
+    from qex_tpu_torch.eigens import hisqev, svdlanczos
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import stag_hmc
+    from qex_tpu_torch.solvers.rational import rational_approx
+    lat = Lattice((24, 24, 24, 24))
+    u = random_links(lat, gen, scale=MEAS_START)
+    m = 0.05
+    mm = m * m
+    torch.cuda.synchronize()
+    reset_counts()                         # count the main path only
+    with torch.no_grad():
+        res, eig_s = timed_once_s(lambda: hisqev.stag_eigs(
+            lat, u, EIGS_N, tol=EIGS_TOL, max_restarts=EIGS_RESTARTS))
+        (sig, _uo, _ve, sinfo), svd_s = timed_once_s(
+            lambda: svdlanczos.svd_stag(lat, u, SVD_N, m=SVD_M,
+                                        tol=SVD_TOL,
+                                        max_restarts=SVD_RESTARTS))
+        ferm, cal_s = timed_once_s(lambda: stag_hmc.StagRootedFermion(
+            lat, m, nf=2).calibrate_spectral_range(u))
+    launches = read_counts()
+    lo, hi = ferm.spectral_bounds
+    approx = {}
+    for name, (a, b_) in (("calibrated", (lo, hi)),
+                          ("analytic", (mm, mm + 16.0))):
+        ra = rational_approx(-2, 4, a, b_, 10)
+        approx[name] = {"lo": a, "hi": b_, "degree": ra.degree,
+                        "max_rel_err": ra.max_rel_err}
+    sig_dev = [abs(s * s - e) / e for s, e in zip(sig, res.evals)]
+    out = {"phase": "eigs_stag", "dims": list(lat.dims),
+           "links": f"expm({MEAS_START} tah)", "evals": res.evals.tolist(),
+           "true_residuals": res.resids.tolist(),
+           "matvecs_A": res.info["matvecs_A"], "cycles": res.info["cycles"],
+           "converged": res.info["converged"],
+           "window": list(res.info["window"]), "eigs_seconds": eig_s,
+           "svd_n": SVD_N, "svd_m": SVD_M, "svd_max_restarts": SVD_RESTARTS,
+           "svd_sigma": sig.tolist(), "svd_cycles": sinfo["cycles"],
+           "svd_converged": sinfo["converged"],
+           "svd_matvecs": sinfo["matvecs"],
+           "svd_relative_residual": sinfo["relative_residual"],
+           "svd_seconds": svd_s, "sigma2_vs_evals_rel_dev": sig_dev,
+           "sigma2_tol": TOL_SIGMA2, "calibrate_seconds": cal_s,
+           "rooted_m": m, "rational_A^(-1/2)": approx,
+           "kernel_launches": launches}
+    emit(out)
+    if not (res.info["converged"] and sinfo["converged"]):
+        raise AssertionError(f"eigs_stag: not converged: eigensolve "
+                             f"{res.info['converged']}, SVD "
+                             f"{sinfo['converged']}")
+    if not max(sig_dev) <= TOL_SIGMA2:
+        raise AssertionError(f"eigs_stag: sigma^2 against evals {sig_dev}")
+    if not (mm / 2 <= lo < hi <= 1.2 * (mm + 16.0)):
+        raise AssertionError(f"eigs_stag: calibrated bracket {(lo, hi)}")
+    if launches["stag8_dslash"] <= 0:
+        raise AssertionError("eigs_stag: B1 never launched")
+    return out, u
+
+
+def phase_measure(u, gen) -> dict:
+    """Phase 30's links through io/lime and back, then the measure and
+    eigs apps on the file; B3 against its plain twin on those links."""
+    import tempfile
+
+    import numpy as np
+
+    from qex_tpu_torch.apps import eigs as eigs_app
+    from qex_tpu_torch.apps import measure as measure_app
+    from qex_tpu_torch.gauge import loops
+    from qex_tpu_torch.io import lime
+    from qex_tpu_torch.lattice import Lattice
+    lat = Lattice(tuple(u.shape[-4:]))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "cfg24.lime")
+        written = u.cpu().numpy()
+        t0 = time.perf_counter()
+        lime.save_gauge(path, lat, u)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = lime.load_gauge(path, lat)      # verifies the checksum
+        read_s = time.perf_counter() - t0
+        if not np.array_equal(back, written):
+            raise AssertionError("measure: links read back differ")
+        plaq = float(loops.plaquette(lat, u))
+        torch.cuda.synchronize()
+        reset_counts()                         # count the main path only
+        t0 = time.perf_counter()
+        lines = _run_main(measure_app.main, [
+            f"-gauge:{path}", "-mass:0.05", "-mesons:true", "-pbp:true",
+            "-noise:z4", "-nNoise:4", "-dilution:eo", "-wilsonMesons:true"])
+        measure_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        elines = _run_main(eigs_app.main, [f"-gauge:{path}", "-nev:8",
+                                           "-deflate:true"])
+        eigs_s = time.perf_counter() - t0
+        launches = read_counts()
+        # the Wilson hop the app ran (mass, bc, links) against its twin
+        ub = torch.from_numpy(back.astype(np.complex64)).to(u.device)
+        X, Y, Z, T = lat.dims
+        x = torch.randn((4, 3, T // 2, Z, Y * X), dtype=torch.complex64,
+                        generator=gen, device=u.device)
+        kcheck = compare_wilson("wilson8_hop", wilson_op(
+            lat, ub, 0.05, "pppa")(torch.float32), x)
+        del ub
+    meas_plaq = _finite_numbers(lines, "MEASplaq", 1)[0][0]
+    mesons = _finite_numbers(lines, "MEASmeson", 8)
+    wmesons = _finite_numbers(lines, "MEASwmeson", 9)
+    pbp = _finite_numbers(lines, "MEASpbp", 1)[0][0]
+    eig = _finite_numbers(elines, "EIGEN ", 8)
+    out = {"phase": "measure", "dims": list(lat.dims),
+           "lime_write_s": write_s, "lime_read_s": read_s,
+           "measure_seconds": measure_s, "eigs_seconds": eigs_s,
+           "MEASplaq": meas_plaq, "plaquette_written": plaq,
+           "MEASpbp": pbp,
+           "pion5": [ln for ln in lines if ln.startswith("MEASmeson pion5")],
+           "wilson_pion": [ln for ln in lines
+                           if ln.startswith("MEASwmeson pion")],
+           "eigen": [ln for ln in elines if ln.startswith("EIGEN")],
+           "deflate": [ln for ln in elines if ln.startswith("DEFLATE")],
+           "wilson8_vs_plain": kcheck, "kernel_launches": launches}
+    emit(out)
+    if not abs(meas_plaq - plaq) <= 1e-6:
+        raise AssertionError(f"measure: MEASplaq {meas_plaq} != {plaq}")
+    if not (all(x > 0 for x in mesons[0][:]) and
+            all(x > 0 for x in wmesons[0][:]) and pbp > 0):
+        raise AssertionError("measure: pion5, Wilson pion or pbp not > 0")
+    if not all(math.isfinite(r[-1]) for r in eig):
+        raise AssertionError("measure: EIGEN residual not finite")
+    for k in ("stag8_dslash", "wilson8_hop"):
+        if launches[k] <= 0:
+            raise AssertionError(f"measure: {k} never launched")
+    return out
+
+
+def phase_app_pbp() -> dict:
+    """staghmc_spv on the config-4 deck with pbp_freq=1, one trajectory
+    at 24^4."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    from qex_tpu_torch.apps import staghmc_spv
+    tree = ET.parse(ROOT / "qex_tpu_torch" / "apps" / "decks"
+                    / "config4_24.xml")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        deck = str(Path(tmp) / "config4_24_pbp.xml")
+        tree.write(deck)
+        torch.cuda.synchronize()
+        reset_counts()                         # count the main path only
+        t0 = time.perf_counter()
+        lines = _run_main(staghmc_spv.main, [
+            "--xml", deck, "--ntraj", "1", "-pbp_freq=1", "-save_freq=0"])
+        secs = time.perf_counter() - t0
+    launches = read_counts()
+    pbp = _finite_numbers(lines, "MEASpbp", 1)[0][0]
+    out = {"phase": "app_pbp", "dims": [24, 24, 24, 24], "MEASpbp": pbp,
+           "seconds": secs, "kernel_launches": launches}
+    emit(out)
+    if not pbp > 0:
+        raise AssertionError(f"app_pbp: MEASpbp {pbp}")
+    if launches["stag8_dslash"] <= 0:
+        raise AssertionError("app_pbp: B1 never launched")
+    return out
+
+
 def profiled(tag: str, fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device kernel
     count and busy time (sum of kernel durations; one stream, so they
@@ -2198,23 +2546,37 @@ def main() -> int:
     _ab(gen, "ab_hisq_hasenbusch", hisq_hasenbusch_theory, start=HISQ_START,
         needed=("hisq16_dslash",))
     ns32 = phase_northstar32(gen)
+    eigs_hisq = phase_eigs_hisq(gen)
+    eigs_stag, u_meas = phase_eigs_stag(gen)
+    meas = phase_measure(u_meas, gen)
+    del u_meas
+    app_pbp = phase_app_pbp()
     kern["stag8_dslash"]["max_abs_err"] = max(
         kern["stag8_dslash"]["max_abs_err"],
         ns32["stag8_dslash_vs_plain"]["max_abs_err"])
+    kern["hisq16_dslash"]["max_abs_err"] = max(
+        kern["hisq16_dslash"]["max_abs_err"],
+        eigs_hisq["hisq16_vs_plain"]["max_abs_err"])
+    kern["wilson8_hop"]["max_abs_err"] = max(
+        kern["wilson8_hop"]["max_abs_err"],
+        meas["wilson8_vs_plain"]["max_abs_err"])
     for name, err in gen_err.items():
         kern[name] = dict(gtime[name], max_abs_err=err)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(dev["smi"], flush=True)
     # each kernel's main path: the smeared config-4 trajectories, the
     # app, the multi-mass and batched solves, the rooted and Hasenbusch
-    # runs and the 32^3x64 trajectory for the 8-term kernels, config 5's
-    # solves and the HISQ trajectories (with and without a Hasenbusch
-    # mass) for the 16-term ones, the Wilson solves, mesons and MG A/B
-    # for the Wilson hop, the generation benchmark's A/B and CG for the
-    # older staggered kernels
-    paths = {"stag8": (smeared, app, smulti, rhmc, hasen, ns32),
-             "hisq16": (hsolve, hhmc, hasen),
-             "wilson8": (wsolve, wmesons, wmg),
+    # runs, the 32^3x64 trajectory, the plain eigensolve, SVD and
+    # calibration, the measure and eigs apps and the app's condensate
+    # for the 8-term kernels, config 5's solves, the HISQ trajectories
+    # (with and without a Hasenbusch mass) and the HISQ eigensolve for
+    # the 16-term ones, the Wilson solves, mesons, MG A/B and the
+    # measure app's Wilson mesons for the Wilson hop, the generation
+    # benchmark's A/B and CG for the older staggered kernels
+    paths = {"stag8": (smeared, app, smulti, rhmc, hasen, ns32, eigs_stag,
+                       meas, app_pbp),
+             "hisq16": (hsolve, hhmc, hasen, eigs_hisq),
+             "wilson8": (wsolve, wmesons, wmg, meas),
              **{kind: (gtime, gcg) for kind in GEN_KINDS}}
     kernels = []
     for name, (kind, _ldt, _c) in KERNELS.items():

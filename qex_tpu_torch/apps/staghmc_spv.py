@@ -16,7 +16,9 @@ Usage:
 It runs on the CUDA card in complex64; ``--cpu`` runs on the host in
 complex128.  Output lines carry the reference's tags: ``Begin H``,
 ``End H``, ``ACCEPT``/``REJECT``, ``MEASplaq``, ``MEASplaq6``,
-``MEASploop``, ``SOLVER``, ``REVCHECK``.
+``MEASploop``, ``MEASpbp`` (every ``pbp_freq`` trajectories, the
+chiral condensate of ``observables.condensate`` on the unsmeared links),
+``SOLVER``, ``REVCHECK``.
 
 Each trajectory draws from a ``torch.Generator`` seeded from
 ``(serial_seed, traj)`` (the hot start from ``parallel_seed``), so a
@@ -30,24 +32,17 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
+
+from qex_tpu_torch.rng import seeded_generator
 
 # words appended to (serial_seed, traj) for the per-trajectory checks,
 # the JAX app's fold_in constants
 _SOLVER_WORD = 101
 _REVCHECK_WORD = 202
-
-
-def seed_of(*words: int) -> int:
-    """A 63-bit generator seed from a tuple of non-negative integers."""
-    state = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)
-    return int(state[0] >> np.uint64(1))
-
-
-def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
-    """A generator on ``device`` seeded from a tuple of words."""
-    return torch.Generator(device=device).manual_seed(seed_of(*words))
+# the chiral condensate's noise comes from (parallel_seed, 10_000 + traj),
+# as the JAX app folds it, so it draws nothing from the trajectory's stream
+_PBP_WORD = 10_000
 
 
 def build_theory(cfg, lat):
@@ -163,7 +158,9 @@ def main(argv=None) -> int:
     from qex_tpu_torch.gauge import loops
     from qex_tpu_torch.io import checkpoint as ckpt
     from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.observables import condensate
     from qex_tpu_torch.ops import group
+    from qex_tpu_torch.solvers.base import SolverParams
     from qex_tpu_torch.utils.config import HMCConfig
 
     if args.xml:
@@ -180,9 +177,6 @@ def main(argv=None) -> int:
     if cfg.rank_geom:
         raise NotImplementedError(
             "rank_geom: multi-GPU runs are not ported yet (ROADMAP A11)")
-    if cfg.pbp_freq > 0:
-        raise NotImplementedError(
-            "pbp_freq: the chiral condensate is not ported yet (ROADMAP A9)")
     ntraj = args.ntraj if args.ntraj is not None else cfg.num_trajectories
 
     device = torch.device("cpu" if args.cpu else "cuda")
@@ -246,6 +240,14 @@ def main(argv=None) -> int:
             if cfg.ploop_freq and (traj + 1) % cfg.ploop_freq == 0:
                 pl = complex(loops.polyakov_loop(lat, u))
                 print(f"MEASploop {pl.real:.10g} {pl.imag:.10g}")
+            if cfg.pbp_freq and (traj + 1) % cfg.pbp_freq == 0:
+                pbp = condensate.pbp_staggered(
+                    seeded_generator(device, cfg.parallel_seed,
+                                     _PBP_WORD + traj),
+                    lat, u, cfg.mass, bc=cfg.bc,
+                    params=SolverParams(r2req=cfg.a_tol,
+                                        maxits=cfg.a_maxits, restarts=3))
+                print(f"MEASpbp {pbp:.10g}")
         if cfg.save_freq and (traj + 1) % cfg.save_freq == 0:
             fn = os.path.join(cfg.save_path,
                               f"{cfg.save_filename}_{traj + 1}")

@@ -94,6 +94,14 @@ def dot(x: torch.Tensor, y: torch.Tensor, dtype: torch.dtype | None = None
     return torch.sum(x.conj() * y, dtype=dtype)
 
 
+def gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(len(a), len(b)) matrix of <a_i, b_j> over stacked vectors,
+    accumulated in complex128 (the vectors are upcast first)."""
+    def flat(x):
+        return x.reshape(x.shape[0], -1).to(torch.complex128)
+    return flat(a).conj() @ flat(b).T
+
+
 def redot(x: torch.Tensor, y: torch.Tensor,
           dtype: torch.dtype | None = None) -> torch.Tensor:
     """Real part of the global inner product, accumulated in ``dtype``

@@ -622,8 +622,9 @@ class StagRootedFermion:
     (kernel B1 on the card, the plain fast-layout operator on the
     host): the heatbath phi = A^{+nf/8} xi_e, so Cov(phi) = A^{nf/4};
     the action S = c0 |phi|^2 + sum_i r_i phi^dag (A + s_i)^{-1} phi
-    of A^{-nf/4}.  The approximations cover the analytic spectral bound
-    [m^2, m^2 + nd^2] of A."""
+    of A^{-nf/4}.  The approximations cover ``spectral_bounds``, a
+    measured (lo, hi) bracket of A (:meth:`calibrate_spectral_range`),
+    or else the analytic bound [m^2, m^2 + nd^2]."""
 
     lat: Lattice
     m: float
@@ -632,18 +633,26 @@ class StagRootedFermion:
     degree: int = 10
     params: SolverParams = SolverParams(r2req=1e-12, maxits=2000, restarts=1)
     force_params: SolverParams | None = None
+    spectral_bounds: tuple | None = None
 
     def _spectral_range(self) -> tuple[float, float]:
+        if self.spectral_bounds is not None:
+            return tuple(self.spectral_bounds)
         # |eig(D_eo D_oe)| <= nd^2 for the staggered hop with its 1/2
         lo = self.m * self.m
         return lo, lo + float(self.lat.nd ** 2)
 
-    def calibrate_spectral_range(self, u: torch.Tensor, safety: float = 1.2):
-        """The JAX package tightens the interval to a Lanczos bracket of
-        A's spectrum, which needs its eigensolvers."""
-        raise NotImplementedError(
-            "calibrate_spectral_range needs the Lanczos eigensolvers, "
-            "which are not ported yet (ROADMAP A9)")
+    def calibrate_spectral_range(self, u: torch.Tensor, safety: float = 1.2
+                                 ) -> "StagRootedFermion":
+        """A copy whose rational approximations cover the measured
+        spectrum of A(m) on ``u`` (a 30-step Lanczos bracket,
+        ``eigens.hisqev.spectral_range_stag``, on B1 for links on the
+        card): lo = max(m^2 / 2, lo / safety), hi * safety."""
+        from ..eigens.hisqev import spectral_range_stag
+        lo, hi = spectral_range_stag(self.lat, u, self.m, bc=self.bc)
+        mm = self.m * self.m
+        lo = max(mm * 0.5, lo / safety)
+        return dataclasses.replace(self, spectral_bounds=(lo, hi * safety))
 
     def _approx(self, num: int, den: int) -> RationalApprox:
         lo, hi = self._spectral_range()

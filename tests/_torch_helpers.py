@@ -2,6 +2,7 @@
 handed to both packages, and the comparison measures."""
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -50,3 +51,19 @@ def rel(got, ref):
 def rel2(got, ref):
     """Squared relative deviation, the JAX kernel tests' measure."""
     return rel(got, ref) ** 2
+
+
+@pytest.fixture(scope="module")
+def single_threaded():
+    """Native thread pools (numpy's OpenBLAS, torch's intra-op pool) at
+    one thread for a test module.  Tier-1 runs six workers on the
+    host's cores; oversubscribed, a multithreaded OpenBLAS eigensolve of
+    a 384 x 384 matrix took 22-44 s instead of milliseconds."""
+    from threadpoolctl import threadpool_limits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(threads)

@@ -151,8 +151,7 @@ def test_app_runs_on_the_cpu_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-rank_geom=1,1,1,2"], "A11"), (["-pbp_freq=1"], "A9"),
-    (["--profile"], "split-step"),
+    (["-rank_geom=1,1,1,2"], "A11"), (["--profile"], "split-step"),
 ])
 def test_unported_app_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -94,7 +94,14 @@ def test_package_imports_no_jax():
             "qex_tpu_torch.utils.config", "qex_tpu_torch.io.checkpoint",
             "qex_tpu_torch.device", "qex_tpu_torch.physics.wilson_pallas",
             "qex_tpu_torch.mg.kcycle",
-            "qex_tpu_torch.observables.mesons"} <= set(mods)
+            "qex_tpu_torch.observables.mesons", "qex_tpu_torch.rng",
+            "qex_tpu_torch.io.lime", "qex_tpu_torch.utils.params",
+            "qex_tpu_torch.eigens.lanczos", "qex_tpu_torch.eigens.chebyshev",
+            "qex_tpu_torch.eigens.refine", "qex_tpu_torch.eigens.svdlanczos",
+            "qex_tpu_torch.eigens.hisqev", "qex_tpu_torch.solvers.deflate",
+            "qex_tpu_torch.observables.condensate",
+            "qex_tpu_torch.apps.eigs", "qex_tpu_torch.apps.measure"
+            } <= set(mods)
     code = ("import sys, importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules "
@@ -112,6 +119,7 @@ def test_entry_points_default_to_the_card():
     from qex_tpu_torch import convert
     from qex_tpu_torch.bench import stag_generations
     from qex_tpu_torch.mg import coarse, twogrid
+    from qex_tpu_torch.observables import condensate, mesons
     from qex_tpu_torch.ops import group
     from qex_tpu_torch.physics import stag_pallas, stag_pallas2, stag_pallas3
     from qex_tpu_torch.physics import staggered as st
@@ -132,6 +140,10 @@ def test_entry_points_default_to_the_card():
         lambda **kw: stag_pallas2.new_pallas2(s_host, **kw).g_e,
         lambda **kw: stag_pallas3.new_pallas3(s_host, **kw).l_e,
         lambda **kw: stag_generations.setup(lat2, **kw)[1],
+        lambda **kw: mesons.point_source(LAT, 0, **kw),
+        lambda **kw: mesons.wall_source(LAT, 1, **kw),
+        lambda **kw: mesons.momentum_phase(LAT, (1, 0, 0), **kw),
+        lambda **kw: condensate.dilution_masks(LAT, "eo", **kw)[0],
     ]
     for build in builders:
         if torch.cuda.is_available():

@@ -319,6 +319,14 @@ def test_rooted_force_gradient_kick(refs):
     assert rel(n((f - fg) / FG_A), n(cd1 + (cd1 - cd2) / 3)) < 1e-7
 
 
-def test_calibrate_spectral_range_names_its_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        _rooted().calibrate_spectral_range(None)
+def test_calibrate_spectral_range_names_its_item(refs):
+    """The calibration (ROADMAP A9, ported in the eigensolver tier and
+    held against JAX's in tests/test_torch_eigens.py) returns a copy
+    whose rational approximations cover the measured bracket of A(m)."""
+    ferm = _rooted()
+    cal = ferm.calibrate_spectral_range(t(refs["u"]))
+    lo, hi = cal.spectral_bounds
+    assert ferm.spectral_bounds is None and cal.m == ferm.m
+    assert M * M / 2 <= lo < hi < 1.2 * (M * M + 16.0)
+    ra = cal._approx(-NF, 4)
+    assert (ra.lo, ra.hi) == (lo, hi)
