@@ -139,11 +139,43 @@ Phases, each printed as one JSON line:
      eigs app (-nev:8 with its deflation line); then B3 against its plain
      twin on the links read back, at the app's mass and bc (TOL_KERNEL);
  32. app_pbp: staghmc_spv on the config-4 deck, one trajectory with
-     pbp_freq=1 (a positive MEASpbp).
+     pbp_freq=1 (a positive MEASpbp);
+ then the remaining samplers, which launch none of B1-B8; each holds its
+ cores on the card against the host on the same draws (the discrete
+ updates in float64 on both sides to TOL_DISCRETE, the rest in float32
+ against float64 to TOL_CARD_HOST) and reports its seconds and peak
+ memory:
+ 33. xy: the xy_mc app at L=256, beta 1.1, from an ordered start,
+     XY_UPDATES heatbath, Metropolis and Wolff updates in turn on one
+     field, their energies within XY_Z combined blocked-jackknife errors
+     of each other; a spin-flow measurement (the flow lowers E); three
+     Wolff clusters on a thermalized field equal to scipy's connected
+     component of the seed, the same at fixed-point strides 1, 4 and 16,
+     each timed; the Z_6 clock model at L=256 (heatbath and Metropolis,
+     with its magnetization);
+ 34. u1: the u1_mc app in 2D at L=128, beta 5: heatbath with one
+     over-relaxation sweep and 2MN HMC, each plaquette within U1_Z
+     blocked-jackknife errors of I1(5)/I0(5), every charge an integer to
+     TOL_TOPO_INT, and a flowed charge;
+ 35. u1_qn: the u1_qn_hmc app at L=64 (6 streams, QN from sweep 8,
+     maximal-tree fixing): <exp(-dH)> within QN_Z_CREUTZ errors of 1, the
+     plaquette within QN_Z_PLAQ of I1/I0, the QN acceptance beside the
+     plain-HMC sweeps';
+ 36. nambu: the nambu_hmc app at 16^4 (Wilson target, beta 6, guide
+     WilsonStout, 3 stout steps, rho 0.1, 50 steps, 3 trajectories), one
+     TopoCloverStoutMeta trajectory, |dH| at 25 against 50 steps at 8^4
+     from the same draws (ratio in NAMBU_RATIO);
+ 37. rahmc: the rahmc app at 16^4 (beta 6, gamma 0.3, 24 steps, 1 HMC and
+     3 RAHMC trajectories); at gamma = 0 its step against the leapfrog
+     hmc_step from the same draws on the card;
+ 38. gauge_fix: Landau and Coulomb fixing at 16^4 of a random gauge
+     transform of expm(0.3 tah) links: the plaquette kept to
+     TOL_FIX_PLAQ, the violation below FIX_VIOL_DROP of its start, the
+     functional never falling by more than TOL_FIX_MONOTONE.
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28-32) and read just
-after it; 19-21 and the pure-gauge apps of 22 must launch no kernel,
-staghmc_spv B1.  Then
+7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28-38) and read just
+after it; 19-21, the pure-gauge apps of 22 and 33-38 must launch no
+kernel, staghmc_spv B1.  Then
 the card line, the kernels summary and, last, the ok line.  Any failed
 check raises, so the script exits non-zero and prints no ok line;
 without a CUDA device it exits non-zero at once.
@@ -2433,6 +2465,681 @@ def phase_app_pbp() -> dict:
     return out
 
 
+# --- phases 33-38: the remaining samplers (no hop kernel) ----------------------
+#
+# Each runs at the size users run, through the apps where there is one,
+# and holds its deterministic cores on the card against the host on the
+# same injected draws: the discrete updates (von Mises heatbath,
+# Metropolis, the Wolff cluster, the clock model) in float64 on both
+# sides (an accept decision a float32 rounding apart flips a site, so
+# they must agree to TOL_DISCRETE), the molecular dynamics and gauge
+# fixing in float32 / complex64 on the card against float64 / complex128
+# on the host (TOL_CARD_HOST).  None launches B1-B8.
+TOL_DISCRETE = 1e-12
+TOL_CARD_HOST = 1e-5
+# xy: L=256 at beta 1.1 (near the BKT point), ordered start.  The three
+# algorithms run in turn on one field (heatbath, then Metropolis, then
+# Wolff), XY_UPDATES each, so that the two later chains start
+# thermalized; the heatbath's first quarter is dropped.  Each energy mean
+# carries a blocked jackknife over 10 blocks.  With 100 updates each
+# (blocks of 10) the pairwise z reached 4.9 over six seeds at L=64 on the
+# host (the Metropolis and Wolff energies' tau_int up to 24 updates); with
+# 400 it stayed under 3 over eight.
+XY_L, XY_BETA, XY_UPDATES, XY_Z = 256, 1.1, 400, 4.0
+XY_WOLFF_CHECKS = (1, 4, 16)     # fixed-point test strides timed
+CLOCK_N, CLOCK_BETA, CLOCK_SWEEPS = 6, 1.0, 100
+# u1: 2D L=128, beta 5: <plaq> = I1(5)/I0(5) up to exponentially small
+# torus corrections (tests/test_u1.py:6-7); heatbath sweeps and 2MN HMC
+# trajectories after U1_THERM heatbath sweeps from the random start (HMC
+# from a random start approaches the plaquette slowly: 0.896 after 60
+# trajectories from a cold start at L=64, against 0.8934)
+U1_L, U1_BETA, U1_N, U1_THERM, U1_Z = 128, 5.0, 200, 40, 4.0
+U1_PLAQ_EXACT = 0.8933831370440849       # scipy iv(1, 5) / iv(0, 5)
+TOL_TOPO_INT = 1e-4
+# u1_qn: the app at L=64, 6 streams, QN from sweep 8, maximal-tree
+# fixing, streams thermalized by 40 heatbath sweeps and tree-fixed.  The
+# app's default QN trajectory (tau 2 in 10 leapfrog steps) accepts none
+# at L=64 (dH rms 16-26, in the JAX app too); tau 1 in 20 steps accepts
+# 0.86-0.88 on the host.
+QN_ARGS = ["-L:64", "-nstream:6", "-qnbegin:8", "-trajs:48", "-therm:40",
+           "-qntau:1", "-qnsteps:20"]
+QN_Z_CREUTZ, QN_Z_PLAQ = 3.0, 4.0
+# nambu: 16^4, Wilson target beta 6, WilsonStout guide (3 steps, rho 0.1)
+NAMBU_ARGS = ["-lat:16,16,16,16", "-beta:6.0", "-nact:WilsonStout",
+              "-nstout:3", "-rho:0.1", "-nbeta:6.0", "-tau:1.0", "-steps:50",
+              "-trajs:3"]
+NAMBU_GATE_DIMS = (8, 8, 8, 8)
+NAMBU_RATIO = (2.0, 8.0)     # |dH(25 steps)| / |dH(50 steps)|: 4 at 2nd order
+# rahmc: 16^4, beta 6, gamma 0.3, 24 steps, 1 HMC + 3 RAHMC trajectories
+RAHMC_ARGS = ["-lat:16,16,16,16", "-beta:6.0", "-gamma:0.3", "-tau:1.0",
+              "-steps:24", "-trajs:4", "-hmcUntil:1"]
+# and gamma = 0 against leapfrog on the card from the same draws, in
+# complex128: the conformal leapfrog kicks twice with eps/2 where the two
+# halves meet, leapfrog once with eps, and in complex64 that rounding
+# alone moved dH by 5.7e-5 at 8^4 (4.2e-6 at 4^4, growing with the
+# volume) on the host; the complex64 figures are reported beside
+TOL_RAHMC_DH, TOL_RAHMC_LINKS = 1e-4, 1e-5
+# gauge_fix: 16^4, a random gauge transform of expm(0.3 tah) links;
+# the violation falls below 1e-7 of its start within 100 sweeps at 8^4
+# on the host (float32 floor ~1e-14)
+FIX_DIMS, FIX_ITERS, FIX_EVERY = (16, 16, 16, 16), 200, 20
+TOL_FIX_PLAQ, FIX_VIOL_DROP = 1e-6, 1e-5
+TOL_FIX_MONOTONE = 1e-6      # float32 noise of the functional
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(dev):
+    if torch.device(dev).type == "cuda":
+        return torch.cuda.max_memory_allocated() / 2**30
+    return None
+
+
+def _rel_dev(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got = got.to("cpu", ref.dtype)
+    return float(torch.linalg.vector_norm(got - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+def _jack(series, blocks: int = 10):
+    """(mean, blocked-jackknife error) over ``blocks`` blocks."""
+    from qex_tpu_torch.utils import resample
+    return resample.jackknife(series, block=max(1, len(series) // blocks))
+
+
+def _gate(tag: str, ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(f"{tag}: {msg}")
+
+
+def _app_dev(dev) -> list[str]:
+    return ["-cpu:true"] if torch.device(dev).type == "cpu" else []
+
+
+def _check_card_host(tag: str, devs: dict) -> dict:
+    for k, v in devs.items():
+        tol = TOL_DISCRETE if k.startswith("discrete") else TOL_CARD_HOST
+        _gate(tag, v <= tol, f"card against host: {k} deviates by {v}")
+    return devs
+
+
+def _xy_card_host(dev) -> dict:
+    """xy and clock cores on ``dev`` against the host, same draws."""
+    from qex_tpu_torch.models import clock, xy
+    gen = torch.Generator().manual_seed(SEED + 33)
+    th = (2 * torch.rand((64, 48), generator=gen, dtype=torch.float64)
+          - 1) * math.pi
+    hb = xy.draw_heatbath(gen, th)
+    devs = {"discrete_heatbath": _rel_dev(
+        xy.heatbath_sweep_from(th.to(dev), XY_BETA, xy.VonMisesDraws(
+            hb.theta0.to(dev), hb.u.to(dev))),
+        xy.heatbath_sweep_from(th, XY_BETA, hb))}
+    prop, acc = xy.draw_metropolis(gen, th)
+    devs["discrete_metropolis"] = _rel_dev(
+        xy.metropolis_sweep_from(th.to(dev), XY_BETA, 1.0, prop.to(dev),
+                                 acc.to(dev))[0],
+        xy.metropolis_sweep_from(th, XY_BETA, 1.0, prop, acc)[0])
+    alpha, seed, bond_u = xy.draw_wolff(gen, th)
+    devs["discrete_wolff"] = _rel_dev(
+        xy.wolff_update_from(th.to(dev), XY_BETA, alpha, seed,
+                             bond_u.to(dev))[0],
+        xy.wolff_update_from(th, XY_BETA, alpha, seed, bond_u, 1)[0])
+    devs["spin_flow_f32"] = _rel_dev(
+        xy.spin_flow(th.to(dev, torch.float32), 0.05, 10),
+        xy.spin_flow(th, 0.05, 10))
+    k = torch.randint(CLOCK_N, (64, 48), generator=gen)
+    g = clock.draw_heatbath(gen, k, CLOCK_N)
+    kh = clock.heatbath_sweep_from(k, CLOCK_BETA, CLOCK_N, g)
+    kc = clock.heatbath_sweep_from(k.to(dev), CLOCK_BETA, CLOCK_N, g.to(dev))
+    devs["discrete_clock_heatbath"] = float((kc.cpu() != kh).float().mean())
+    prop, acc = clock.draw_metropolis(gen, k, CLOCK_N)
+    kh = clock.metropolis_sweep_from(k, CLOCK_BETA, CLOCK_N, prop, acc)[0]
+    kc = clock.metropolis_sweep_from(k.to(dev), CLOCK_BETA, CLOCK_N,
+                                     prop.to(dev), acc.to(dev))[0]
+    devs["discrete_clock_metropolis"] = float((kc.cpu() != kh).float().mean())
+    return devs
+
+
+def _segments(lines: list[str]) -> dict:
+    """The xy_mc app's multi-algorithm output: per algorithm, its E/bond
+    series, its |M| series and its seconds."""
+    out, cur = {}, None
+    for ln in lines:
+        w = ln.split()
+        if ln.startswith("# algo "):
+            cur = out.setdefault(w[2], {"E": [], "M": [], "seconds": None})
+        elif ln.startswith("MEAS") and cur is not None:
+            cur["E"].append(float(w[4]))
+            cur["M"].append(float(w[6]))
+        elif cur is not None and len(w) >= 6 and w[3] == "updates":
+            cur["seconds"] = float(w[5])
+    return out
+
+
+def phase_xy(gen, dev="cuda", L=XY_L, updates=XY_UPDATES) -> dict:
+    """The xy_mc app at L x L from an ordered start, the Wolff cluster
+    against scipy's connected component, the fixed-point stride, the
+    clock model, and the cores on the card against the host."""
+    from qex_tpu_torch.apps import xy_mc
+    from qex_tpu_torch.models import clock, xy
+    tag = "xy"
+    _sync(dev)
+    reset_counts()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    lines = _run_main(xy_mc.main, [
+        f"-L:{L}", f"-beta:{XY_BETA}", "-algo:heatbath,metropolis,wolff",
+        f"-sweeps:{updates}", "-meas:1", "-start:ordered",
+        f"-seed:{SEED}"] + _app_dev(dev))
+    app_s = time.perf_counter() - t0
+    seg = _segments(lines)
+    stats = {}
+    for name, s in seg.items():
+        e = s["E"][updates // 4:] if name == "heatbath" else s["E"]
+        _gate(tag, len(s["E"]) == updates and all(map(math.isfinite, e)),
+              f"{name}: {len(s['E'])} finite energies, expected {updates}")
+        m, err = _jack(e)
+        stats[name] = {"E_per_bond": m, "err": err, "n": len(e),
+                       "E_per_site": 2 * m, "abs_M_last": s["M"][-1],
+                       "seconds_per_update": s["seconds"] / updates}
+    zs = {}
+    names = list(stats)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            zs[f"{a}-{b}"] = (abs(stats[a]["E_per_bond"]
+                                  - stats[b]["E_per_bond"])
+                              / math.hypot(stats[a]["err"], stats[b]["err"]))
+    app_peak = _peak_gib(dev)
+    # one flowed measurement: 20 RK4 steps of 0.05 after 20 heatbath sweeps
+    flow_lines = _run_main(xy_mc.main, [
+        f"-L:{L}", f"-beta:{XY_BETA}", "-algo:heatbath", "-sweeps:20",
+        "-meas:20", "-start:ordered", "-flowTime:1.0", "-flowDt:0.05",
+        f"-seed:{SEED + 1}"] + _app_dev(dev))
+    fl = [ln.split() for ln in flow_lines if ln.startswith("MEAS")][0]
+    e_before, e_flow = float(fl[4]), float(fl[10])
+    # a Wolff cluster on a thermalized field against scipy's connected
+    # component of its seed; the fixed-point strides on the same bonds
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    idx = np.arange(L * L).reshape(L, L)
+    th = torch.zeros((L, L), dtype=torch.float32, device=dev)
+    for _ in range(50):
+        th = xy.heatbath_sweep(gen, th, XY_BETA)
+    strides, masks = {}, {}
+    for rep in range(3):
+        alpha, seed, bond_u = xy.draw_wolff(gen, th)
+        bonds = xy.frozen_bonds(torch.cos(th - alpha), XY_BETA, bond_u)
+        for k in XY_WOLFF_CHECKS:
+            _sync(dev)
+            t1 = time.perf_counter()
+            mask, sweeps = xy.wolff_cluster(bonds, seed, check_every=k)
+            _sync(dev)
+            strides.setdefault(k, []).append(
+                {"seconds": time.perf_counter() - t1, "sweeps": sweeps,
+                 "host_reads": -(-sweeps // k)})
+            masks[k] = mask
+        for k in XY_WOLFF_CHECKS:
+            _gate(tag, torch.equal(masks[k], masks[1]),
+                  f"stride {k} gives another cluster than stride 1")
+        b = bonds.cpu().numpy()
+        rows = np.concatenate([idx[b[mu]] for mu in range(2)])
+        cols = np.concatenate([np.roll(idx, -1, mu)[b[mu]]
+                               for mu in range(2)])
+        graph = coo_matrix((np.ones(len(rows)), (rows, cols)),
+                           shape=(L * L, L * L))
+        _, lab = connected_components(graph, directed=False)
+        want = lab == lab[seed]
+        _gate(tag, bool((masks[1].cpu().numpy().reshape(-1) == want).all()),
+              "the Wolff cluster is not the seed's connected component")
+        strides[XY_WOLFF_CHECKS[0]][-1]["cluster_fraction"] = float(
+            want.mean())
+        th = torch.where(masks[1], 2.0 * alpha + math.pi - th, th)
+    # the clock model, Z_6 at L x L: heatbath then Metropolis from cold
+    k = torch.zeros((L, L), dtype=torch.int64, device=dev)
+    clock_out = {}
+    for name in ("heatbath", "metropolis"):
+        _sync(dev)
+        t1 = time.perf_counter()
+        es = []
+        for _ in range(CLOCK_SWEEPS):
+            if name == "heatbath":
+                k = clock.heatbath_sweep(gen, k, CLOCK_BETA, CLOCK_N)
+            else:
+                k, _acc = clock.metropolis_sweep(gen, k, CLOCK_BETA, CLOCK_N)
+            es.append(float(clock.energy(k, CLOCK_BETA, CLOCK_N))
+                      / (2 * L * L))
+        secs = time.perf_counter() - t1
+        mag = float(clock.magnetization(k, CLOCK_N))
+        clock_out[name] = {"seconds_per_sweep": secs / CLOCK_SWEEPS,
+                           "E_per_bond_last_half": _jack(es[CLOCK_SWEEPS // 2:]),
+                           "abs_M": mag}
+        _gate(tag, 0.0 <= mag <= 1.0 and all(map(math.isfinite, es)),
+              f"clock {name}: |M| {mag}")
+    launches = no_launches(tag)
+    devs = _check_card_host(tag, _xy_card_host(dev))
+    res = {"phase": tag, "L": L, "beta": XY_BETA, "updates": updates,
+           "app_seconds": app_s, "chains": stats, "z": zs,
+           "flow": {"E_per_bond": e_before, "flowE_per_bond": e_flow},
+           "wolff_strides": strides, "wolff_check_app": xy.WOLFF_CHECK,
+           "clock_Z6": clock_out, "peak_mem_gib": app_peak,
+           "card_vs_host": devs, "kernel_launches": launches}
+    emit(res)
+    for pair, z in zs.items():
+        _gate(tag, z <= XY_Z, f"energies {pair} differ by {z:.2f} sigma")
+    _gate(tag, e_flow < e_before,
+          f"the spin flow raised E/bond {e_before} -> {e_flow}")
+    return res
+
+
+def _meas_u1(lines: list[str]) -> dict:
+    """The u1_mc app's MEAS lines: plaquette, charge, flowed charge, dH
+    and accept columns by name."""
+    cols: dict = {}
+    for ln in lines:
+        if not ln.startswith("MEAS"):
+            continue
+        w = ln.split()
+        cols.setdefault("plaq", []).append(float(w[4]))
+        for key in ("topo", "dH", "acc", "flowTopo"):
+            if key in w:
+                cols.setdefault(key, []).append(float(w[w.index(key) + 1]))
+    return cols
+
+
+def _u1_card_host(dev) -> dict:
+    from qex_tpu_torch.models import u1, xy
+    gen = torch.Generator().manual_seed(SEED + 34)
+    th = u1.random_field(gen, (2, 32, 24))
+    d = u1.draw_heatbath(gen, th)
+    devs = {"discrete_heatbath": _rel_dev(
+        u1.heatbath_sweep_from(th.to(dev), U1_BETA, xy.VonMisesDraws(
+            d.theta0.to(dev), d.u.to(dev))),
+        u1.heatbath_sweep_from(th, U1_BETA, d))}
+    th = u1.heatbath_sweep(gen, th, U1_BETA)
+    p = torch.randn(th.shape, generator=gen, dtype=torch.float64)
+    want, _ = u1.hmc_step_from(th, p, 0.0, U1_BETA, 1.0, 10)
+    got, _ = u1.hmc_step_from(th.to(dev, torch.float32),
+                              p.to(dev, torch.float32), 0.0, U1_BETA, 1.0, 10)
+    devs["hmc_2mn_f32"] = _rel_dev(got, want)
+    return devs
+
+
+def phase_u1(gen, dev="cuda", L=U1_L, n=U1_N) -> dict:
+    """The u1_mc app in 2D: heatbath with one over-relaxation sweep, and
+    2MN HMC, each after U1_THERM heatbath sweeps; a flowed charge."""
+    from qex_tpu_torch.apps import u1_mc
+    tag = "u1"
+    base = [f"-L:{L}", f"-beta:{U1_BETA}", "-meas:1", f"-therm:{U1_THERM}"]
+    _sync(dev)
+    reset_counts()
+    _reset_peak(dev)
+    out = {}
+    for algo, extra in (("heatbath", [f"-sweeps:{n}", "-or:1"]),
+                        ("hmc", [f"-trajs:{n}", "-tau:2.0", "-steps:10",
+                                 "-scheme:2MN"])):
+        t0 = time.perf_counter()
+        lines = _run_main(u1_mc.main, base + [f"-algo:{algo}",
+                                              f"-seed:{SEED + len(out)}"]
+                          + extra + _app_dev(dev))
+        secs = time.perf_counter() - t0
+        # the app's own time of its n updates (the heatbath sweeps of
+        # -therm run before its clock starts)
+        app_s = [float(ln.split()[5]) for ln in lines
+                 if ln.startswith(f"# {n} {algo} updates in")][0]
+        c = _meas_u1(lines)
+        plaq = c["plaq"][n // 5:]
+        m, err = _jack(plaq)
+        topo_dev = max(abs(q - round(q)) for q in c["topo"])
+        out[algo] = {"plaq": m, "err": err, "n": len(plaq),
+                     "z": (m - U1_PLAQ_EXACT) / err,
+                     "topo_max_dev_from_int": topo_dev,
+                     "topo_last": c["topo"][-1],
+                     "seconds_per_update": app_s / n, "app_seconds": secs}
+        if algo == "hmc":
+            out[algo]["acceptance"] = sum(c["acc"]) / len(c["acc"])
+            out[algo]["dH_rms"] = math.sqrt(statistics.fmean(
+                d * d for d in c["dH"]))
+    peak = _peak_gib(dev)
+    flow = _meas_u1(_run_main(u1_mc.main, [
+        f"-L:{L}", f"-beta:{U1_BETA}", "-algo:heatbath", "-sweeps:1",
+        "-therm:20", "-flowTime:1.0", "-flowDt:0.02", f"-seed:{SEED + 9}"]
+        + _app_dev(dev)))
+    launches = no_launches(tag)
+    devs = _check_card_host(tag, _u1_card_host(dev))
+    res = {"phase": tag, "L": L, "beta": U1_BETA, "exact": U1_PLAQ_EXACT,
+           "chains": out, "flow_topo": flow["flowTopo"][0],
+           "topo_before_flow": flow["topo"][0], "peak_mem_gib": peak,
+           "card_vs_host": devs, "kernel_launches": launches}
+    emit(res)
+    for algo, r in out.items():
+        _gate(tag, abs(r["z"]) <= U1_Z,
+              f"{algo} plaquette {r['plaq']} +- {r['err']} is "
+              f"{r['z']:.2f} sigma from I1/I0 = {U1_PLAQ_EXACT}")
+        _gate(tag, r["topo_max_dev_from_int"] <= TOL_TOPO_INT,
+              f"{algo} charge off an integer by "
+              f"{r['topo_max_dev_from_int']}")
+    qf = flow["flowTopo"][0]
+    _gate(tag, abs(qf - round(qf)) <= TOL_TOPO_INT, f"flowed charge {qf}")
+    return res
+
+
+def phase_u1_qn(gen, dev="cuda", args=QN_ARGS) -> dict:
+    """The u1_qn_hmc app: <exp(-dH)> and the plaquette of the QN sweeps,
+    the acceptance of QN against plain-HMC sweeps."""
+    from qex_tpu_torch.apps import u1_qn_hmc
+    from qex_tpu_torch.hmc import qnhmc
+    from qex_tpu_torch.models import u1
+    tag = "u1_qn"
+    qnbegin = int([a for a in args if a.startswith("-qnbegin:")][0][9:])
+    _sync(dev)
+    reset_counts()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    lines = _run_main(u1_qn_hmc.main, args + [f"-seed:{SEED}"]
+                      + _app_dev(dev))
+    secs = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    rows = [ln.split() for ln in lines if ln.startswith("MEAS")]
+    sweeps = sorted({int(r[2]) for r in rows})
+    by = {s: [r for r in rows if int(r[2]) == s] for s in sweeps}
+
+    def col(rs, i):
+        return [float(r[i]) for r in rs]
+
+    qn = [s for s in sweeps if s >= qnbegin]
+    plain = [s for s in sweeps if s < qnbegin]
+    acc_qn = statistics.fmean(col([r for s in qn for r in by[s]], 12))
+    acc_plain = statistics.fmean(col([r for s in plain for r in by[s]], 12))
+    # per sweep: the mean over the streams; the plaquette after the first
+    # quarter of the QN sweeps, <exp(-dH)> over all of them
+    creutz = [statistics.fmean(math.exp(-d) for d in col(by[s], 10))
+              for s in qn]
+    plaq = [statistics.fmean(col(by[s], 6)) for s in qn[len(qn) // 4:]]
+    c_m, c_e = _jack(creutz)
+    p_m, p_e = _jack(plaq)
+    launches = no_launches(tag)
+    # card against host: one QN trajectory from the same draws
+    g2 = torch.Generator().manual_seed(SEED + 35)
+    L8 = 8
+    tree = u1.max_tree_mask((L8, L8))
+    x0 = torch.where(tree, 0.0, u1.random_field(g2, (2, L8, L8)))
+    st = qnhmc.qn_init(4, x0.shape)
+    for _ in range(4):
+        xa = x0 + 0.1 * torch.where(tree, 0.0, torch.randn(
+            x0.shape, generator=g2, dtype=torch.float64))
+        xb = x0 + 0.1 * torch.where(tree, 0.0, torch.randn(
+            x0.shape, generator=g2, dtype=torch.float64))
+        st = qnhmc.qn_add(st, xa, u1.force(xa, U1_BETA), xb,
+                          u1.force(xb, U1_BETA), yscale=0.1)
+    q, z, _ = qnhmc.draw_qn(g2, x0.shape, 4, torch.float64)
+
+    def one(d, dtype):
+        s = qnhmc.QNState(st.s.to(d, dtype), st.y.to(d, dtype),
+                          st.valid.to(d), st.pos, st.h0)
+        return qnhmc.qn_hmc_step_from(
+            x0.to(d, dtype), q.to(d, dtype), z.to(d, dtype), 0.0,
+            qnhmc.qn_prep(s), lambda y: u1.action(y, U1_BETA),
+            lambda y: u1.force(y, U1_BETA), 1.0, 20, mask=tree.to(d))[0]
+
+    devs = _check_card_host(tag, {"qn_hmc_f32": _rel_dev(
+        one(dev, torch.float32), one("cpu", torch.float64))})
+    res = {"phase": tag, "args": args, "seconds": secs,
+           "seconds_per_traj": secs / len(rows), "trajectories": len(rows),
+           "acceptance_qn": acc_qn, "acceptance_plain": acc_plain,
+           "exp_minus_dH": c_m, "exp_minus_dH_err": c_e,
+           "exp_minus_dH_z": (c_m - 1.0) / c_e, "plaq": p_m, "plaq_err": p_e,
+           "plaq_z": (p_m - U1_PLAQ_EXACT) / p_e, "exact": U1_PLAQ_EXACT,
+           "peak_mem_gib": peak, "card_vs_host": devs,
+           "kernel_launches": launches}
+    emit(res)
+    _gate(tag, abs(res["exp_minus_dH_z"]) <= QN_Z_CREUTZ,
+          f"<exp(-dH)> {c_m} +- {c_e} is {res['exp_minus_dH_z']:.2f} "
+          "sigma from 1")
+    _gate(tag, abs(res["plaq_z"]) <= QN_Z_PLAQ,
+          f"plaquette {p_m} +- {p_e} is {res['plaq_z']:.2f} sigma from "
+          f"I1/I0")
+    return res
+
+
+def _traj_rows(lines: list[str]) -> list[dict]:
+    """``_traj_lines`` of the nambu_hmc and rahmc apps with their verdict,
+    dG, MEASplaq and MEAStopo; raises on a non-finite number."""
+    rows = _traj_lines(lines, ("traj",))
+    for r in rows:
+        w = r.pop("line").replace("(", " ").split()
+        r["accepted"] = "ACCEPT" in w
+        for key in ("dG", "MEASplaq", "MEAStopo"):
+            if key in w:
+                r[key] = float(w[w.index(key) + 1])
+        if not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"non-finite number in {' '.join(w)!r}")
+    return rows
+
+
+def _smooth_links(lat, gen, dtype):
+    """``random_links`` at scale 0.3, built in complex128."""
+    return random_links(lat, gen, torch.complex128, 0.3).to(dtype)
+
+
+def _nambu_system(lat, dtype, dev, nstout: int = 3):
+    from qex_tpu_torch.gauge import action as ga
+    from qex_tpu_torch.gauge.smear import StoutCoefs, stout_smear
+    from qex_tpu_torch.hmc import nambu
+    c = ga.wilson(6.0)
+
+    def guide(uu):
+        for _ in range(nstout):
+            uu = stout_smear(StoutCoefs(0.1), lat, uu)
+        return ga.full_action(c, lat, uu)
+    return nambu.NambuSystem(functools.partial(ga.full_action, c, lat), guide,
+                             nambu.generators(3, dtype, dev),
+                             target_force=functools.partial(ga.gauge_force,
+                                                            c, lat))
+
+
+def phase_nambu(gen, dev="cuda", args=NAMBU_ARGS,
+                gate_dims=NAMBU_GATE_DIMS) -> dict:
+    """The nambu_hmc app (3 trajectories, the first a forced warm-up), one
+    metadynamics trajectory, |dH| against the step count, the card
+    against the host."""
+    from qex_tpu_torch.apps import nambu_hmc
+    from qex_tpu_torch.hmc import nambu
+    from qex_tpu_torch.lattice import Lattice
+    tag = "nambu"
+    _sync(dev)
+    reset_counts()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    rows = _traj_rows(_run_main(nambu_hmc.main, args + [f"-seed:{SEED}"]
+                                + _app_dev(dev)))
+    secs = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    _reset_peak(dev)
+    meta_args = [a for a in args if not a.startswith(("-nact:", "-trajs:"))]
+    t0 = time.perf_counter()
+    meta = _traj_rows(_run_main(nambu_hmc.main, meta_args + [
+        "-nact:TopoCloverStoutMeta", "-trajs:1", f"-seed:{SEED + 1}"]
+        + _app_dev(dev)))
+    meta_s = time.perf_counter() - t0
+    meta_peak = _peak_gib(dev)
+    # |dH| at 25 and 50 steps from the same (u, pi, qi)
+    lat = Lattice(gate_dims)
+    u = _smooth_links(lat, gen, torch.complex64)
+    sy = _nambu_system(lat, torch.complex64, u.device)
+    pi, qi, _ = nambu.draw_nambu(gen, u, sy.gens)
+    dh = {ns: nambu.nambu_hmc_step_from(u, pi, qi, 0.0, sy, 1.0, ns)[1]
+          for ns in (25, 50)}
+    ratio = abs(dh[25]) / abs(dh[50])
+    launches = no_launches(tag)
+    small = Lattice((4, 4, 4, 4))
+    uh = _smooth_links(small, torch.Generator().manual_seed(SEED + 36),
+                       torch.complex128)
+    g2 = torch.Generator().manual_seed(SEED + 37)
+    pih, qih, _ = nambu.draw_nambu(g2, uh, nambu.generators(
+        3, torch.complex128))
+    want = nambu.nambu_hmc_step_from(
+        uh, pih, qih, 0.0, _nambu_system(small, torch.complex128, "cpu", 1),
+        0.5, 10)[0]
+    got = nambu.nambu_hmc_step_from(
+        uh.to(dev, torch.complex64), pih.to(dev, torch.float32),
+        qih.to(dev, torch.float32), 0.0,
+        _nambu_system(small, torch.complex64, dev, 1), 0.5, 10)[0]
+    devs = _check_card_host(tag, {"trajectory_c64": _rel_dev(got, want)})
+    res = {"phase": tag, "args": args, "trajs": rows, "seconds": secs,
+           "seconds_per_traj": [r["seconds"] for r in rows],
+           "peak_mem_gib": peak, "meta": meta, "meta_seconds": meta_s,
+           "meta_peak_mem_gib": meta_peak, "gate_dims": list(gate_dims),
+           "dH_25": dh[25], "dH_50": dh[50], "ratio": ratio,
+           "card_vs_host": devs, "kernel_launches": launches}
+    emit(res)
+    _gate(tag, len(rows) == 3 and len(meta) == 1, "missing traj lines")
+    _gate(tag, NAMBU_RATIO[0] <= ratio <= NAMBU_RATIO[1],
+          f"|dH| ratio 25/50 steps {ratio} (dH {dh})")
+    return res
+
+
+def phase_rahmc(gen, dev="cuda", args=RAHMC_ARGS, dims=(16, 16, 16, 16)
+                ) -> dict:
+    """The rahmc app (1 HMC, 3 RAHMC trajectories); gamma = 0 against the
+    leapfrog hmc_step from the same draws on the card; the card against
+    the host."""
+    from qex_tpu_torch.apps import rahmc
+    from qex_tpu_torch.gauge import action as ga
+    from qex_tpu_torch.hmc import hmc, integrators
+    from qex_tpu_torch.lattice import Lattice
+    tag = "rahmc"
+    _sync(dev)
+    reset_counts()
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    rows = _traj_rows(_run_main(rahmc.main, args + [f"-seed:{SEED}"]
+                                + _app_dev(dev)))
+    secs = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    lat = Lattice(dims)
+    c = ga.wilson(6.0)
+    act = functools.partial(ga.full_action, c, lat)
+    frc = functools.partial(ga.gauge_force, c, lat)
+    u = _smooth_links(lat, gen, torch.complex64)
+    p, _ = rahmc.draw(gen, u)
+    gamma0 = {}
+    for name, dtype in (("c128", torch.complex128), ("c64", torch.complex64)):
+        uc, pc = u.to(dtype), p.to(dtype)
+        u0, dh0, _ = rahmc.ra_step_from(uc, pc, 0.0, act, frc, 0.0, 1.0, 24)
+        with torch.no_grad():
+            ulf, st = hmc.hmc_step_from(uc, pc, 0.0, act, frc,
+                                        integrators.get_integrator("LF"),
+                                        1.0, 24)
+        gamma0[name] = {"dH_ra": dh0, "dH_lf": st.dH,
+                        "dH_diff": abs(dh0 - st.dH),
+                        "links_rel_dev": float(
+                            torch.linalg.vector_norm(u0 - ulf)
+                            / torch.linalg.vector_norm(ulf))}
+        del uc, pc, u0, ulf
+    launches = no_launches(tag)
+    small = Lattice((4, 4, 4, 4))
+    uh = _smooth_links(small, torch.Generator().manual_seed(SEED + 38),
+                       torch.complex128)
+    ph = hmc.draw_momenta(torch.Generator().manual_seed(SEED + 39), uh)
+    a4 = functools.partial(ga.full_action, c, small)
+    f4 = functools.partial(ga.gauge_force, c, small)
+    want = rahmc.ra_step_from(uh, ph, 0.0, a4, f4, 0.3, 1.0, 24)[0]
+    got = rahmc.ra_step_from(uh.to(dev, torch.complex64),
+                             ph.to(dev, torch.complex64), 0.0, a4, f4, 0.3,
+                             1.0, 24)[0]
+    devs = _check_card_host(tag, {"trajectory_c64": _rel_dev(got, want)})
+    res = {"phase": tag, "args": args, "trajs": rows, "seconds": secs,
+           "seconds_per_traj": [r["seconds"] for r in rows],
+           "peak_mem_gib": peak, "gamma0_vs_lf": gamma0,
+           "card_vs_host": devs, "kernel_launches": launches}
+    emit(res)
+    _gate(tag, len(rows) == 4, "missing traj lines")
+    g0 = gamma0["c128"]
+    _gate(tag, g0["dH_diff"] <= TOL_RAHMC_DH,
+          f"gamma = 0 dH {g0['dH_ra']} against leapfrog {g0['dH_lf']}")
+    _gate(tag, g0["links_rel_dev"] <= TOL_RAHMC_LINKS,
+          f"gamma = 0 links deviate by {g0['links_rel_dev']}")
+    return res
+
+
+def phase_gauge_fix(gen, dev="cuda", dims=FIX_DIMS, iters=FIX_ITERS) -> dict:
+    """Landau and Coulomb fixing of a random gauge transform of smooth
+    links: the plaquette kept, the violation's drop, the functional's
+    history; the card against the host."""
+    from qex_tpu_torch.gauge import fix, loops
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.ops import group
+    tag = "gauge_fix"
+    lat = Lattice(dims)
+    u = _smooth_links(lat, gen, torch.complex64)
+    uu = fix.apply_gauge_transform(lat, u, group.random_su(
+        gen, lat.dims, 3, torch.complex64))
+    plaq0 = float(loops.plaquette(lat, uu))
+    _sync(dev)
+    reset_counts()
+    out = {}
+    for gauge in ("landau", "coulomb"):
+        dirs = fix.gauge_dirs(lat, gauge)
+        f0 = float(fix.functional(lat, uu, dirs))
+        v0 = float(fix.violation(lat, uu, dirs))
+        hist = []
+        _reset_peak(dev)
+        secs = 0.0
+        t1 = time.perf_counter()
+        for i, g in enumerate(fix.gauge_fix_iter(lat, uu, gauge=gauge,
+                                                 iters=iters)):
+            if (i + 1) % FIX_EVERY == 0:
+                _sync(dev)
+                secs += time.perf_counter() - t1
+                fu = fix.apply_gauge_transform(lat, uu, g).to(uu.dtype)
+                hist.append([i + 1, float(fix.functional(lat, fu, dirs)),
+                             float(fix.violation(lat, fu, dirs))])
+                t1 = time.perf_counter()
+        peak = _peak_gib(dev)
+        fu = fix.apply_gauge_transform(lat, uu, g).to(uu.dtype)
+        plaq1 = float(loops.plaquette(lat, fu))
+        fs = [f0] + [h[1] for h in hist]
+        out[gauge] = {"functional_start": f0, "violation_start": v0,
+                      "history": hist, "plaq_change": plaq1 - plaq0,
+                      "seconds": secs, "seconds_per_sweep": secs / iters,
+                      "peak_mem_gib": peak,
+                      "max_functional_drop": max(
+                          0.0, max(a - b for a, b in zip(fs, fs[1:])))}
+    launches = no_launches(tag)
+    small = Lattice((4, 4, 4, 4))
+    g2 = torch.Generator().manual_seed(SEED + 40)
+    us = fix.apply_gauge_transform(small, _smooth_links(
+        small, g2, torch.complex128), group.random_su(
+            g2, small.dims, 3, torch.complex128))
+    want = fix.gauge_fix(small, us, gauge="landau", iters=8)[1]
+    got = fix.gauge_fix(small, us.to(dev, torch.complex64), gauge="landau",
+                        iters=8)[1]
+    devs = _check_card_host(tag, {"fixed_links_c64": _rel_dev(got, want)})
+    res = {"phase": tag, "dims": list(dims), "iters": iters, "gauges": out,
+           "plaquette": plaq0, "card_vs_host": devs,
+           "kernel_launches": launches}
+    emit(res)
+    for gauge, r in out.items():
+        _gate(tag, abs(r["plaq_change"]) <= TOL_FIX_PLAQ,
+              f"{gauge}: plaquette moved by {r['plaq_change']}")
+        _gate(tag, r["history"][-1][2] <= FIX_VIOL_DROP * r["violation_start"],
+              f"{gauge}: violation {r['history'][-1][2]} from "
+              f"{r['violation_start']}")
+        _gate(tag, r["max_functional_drop"] <= TOL_FIX_MONOTONE,
+              f"{gauge}: the functional fell by {r['max_functional_drop']}")
+    return res
+
+
 def profiled(tag: str, fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device kernel
     count and busy time (sum of kernel durations; one stream, so they
@@ -2551,6 +3258,12 @@ def main() -> int:
     meas = phase_measure(u_meas, gen)
     del u_meas
     app_pbp = phase_app_pbp()
+    phase_xy(gen)
+    phase_u1(gen)
+    phase_u1_qn(gen)
+    phase_nambu(gen)
+    phase_rahmc(gen)
+    phase_gauge_fix(gen)
     kern["stag8_dslash"]["max_abs_err"] = max(
         kern["stag8_dslash"]["max_abs_err"],
         ns32["stag8_dslash_vs_plain"]["max_abs_err"])

@@ -186,3 +186,37 @@ def mg_hierarchy_from_reference(h: Any,
             tuple(int(a) for a in c.axes))
         for c in h.stencils)
     return MGHierarchy(setups, stencils, tuple(lat_of(lt) for lt in h.lats))
+
+
+def field_from_reference(a: Any, device: torch.device | str | None = None,
+                         dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy (or jax) real angle field (xy spins, U(1) links) or
+    integer clock field -> a tensor of the same shape and values on
+    ``device`` (default: the CUDA card), of ``dtype`` if given, else of
+    the array's own dtype."""
+    x = torch.from_numpy(np.array(a))
+    if x.is_complex():
+        raise ValueError(f"not a real or integer field: {x.dtype}")
+    return x.to(device=resolve(device), dtype=dtype or x.dtype)
+
+
+def qn_state_from_reference(st: Any, device: torch.device | str | None = None,
+                            dtype: torch.dtype = torch.float64):
+    """A JAX ``qnhmc.QNState`` (s, y, valid, pos, h0) -> the port's, the
+    ring buffer and its write position unchanged, on ``device``
+    (default: the CUDA card)."""
+    from .hmc.qnhmc import QNState
+    device = resolve(device)
+    return QNState(_tensor(st.s, device, dtype), _tensor(st.y, device, dtype),
+                   _tensor(st.valid, device, torch.bool), int(st.pos),
+                   float(st.h0))
+
+
+def meta_history_from_reference(h: Any):
+    """A JAX ``nambu.MetaHistory`` (centers, counts; host arrays) -> the
+    port's, slot for slot."""
+    from .hmc.nambu import MetaHistory
+    out = MetaHistory(len(h.centers))
+    out.centers[:] = np.asarray(h.centers)
+    out.counts[:] = np.asarray(h.counts)
+    return out

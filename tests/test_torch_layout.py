@@ -100,8 +100,14 @@ def test_package_imports_no_jax():
             "qex_tpu_torch.eigens.refine", "qex_tpu_torch.eigens.svdlanczos",
             "qex_tpu_torch.eigens.hisqev", "qex_tpu_torch.solvers.deflate",
             "qex_tpu_torch.observables.condensate",
-            "qex_tpu_torch.apps.eigs", "qex_tpu_torch.apps.measure"
-            } <= set(mods)
+            "qex_tpu_torch.apps.eigs", "qex_tpu_torch.apps.measure",
+            "qex_tpu_torch.models.xy", "qex_tpu_torch.models.clock",
+            "qex_tpu_torch.models.u1", "qex_tpu_torch.hmc.qnhmc",
+            "qex_tpu_torch.hmc.nambu", "qex_tpu_torch.gauge.fix",
+            "qex_tpu_torch.utils.numdiff", "qex_tpu_torch.utils.spline",
+            "qex_tpu_torch.apps.xy_mc", "qex_tpu_torch.apps.u1_mc",
+            "qex_tpu_torch.apps.u1_qn_hmc", "qex_tpu_torch.apps.nambu_hmc",
+            "qex_tpu_torch.apps.rahmc"} <= set(mods)
     code = ("import sys, importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules "
