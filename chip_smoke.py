@@ -171,11 +171,40 @@ Phases, each printed as one JSON line:
  38. gauge_fix: Landau and Coulomb fixing at 16^4 of a random gauge
      transform of expm(0.3 tah) links: the plaquette kept to
      TOL_FIX_PLAQ, the violation below FIX_VIOL_DROP of its start, the
-     functional never falling by more than TOL_FIX_MONOTONE.
+     functional never falling by more than TOL_FIX_MONOTONE;
+ then the multi-rank path and the last tools:
+ 39. sharded: first a one-rank NCCL group in this process at (1,1,1,1):
+     the block operators of B1 and B1b equal the unsharded kernel
+     operators bit for bit, and a block solve; then four ranks started
+     with torch.multiprocessing, processes sharing the card through gloo
+     with every exchange and sum staged through host memory (so no time
+     of this phase is a multi-GPU figure): B1/B1b at 24^4 and B2/B2b on
+     config 5's HISQ links (expm(HISQ_START tah)) at 32^3x64, split
+     (1,1,2,1) and (1,1,1,2) over two ranks each pair at once, then
+     (1,1,2,2) over four: each sharded d2ee and d2dd against the
+     unsharded kernel operator on the card and each rank's local hop
+     against its plain twin on its block (TOL_KERNEL); then, counted,
+     solve_ee_sharded at 24^4 over (1,1,2,2), m=0.05, r2req 1e-10 (the
+     iterations of stag_solve's, its true residual within TOL_RES, the
+     seconds per iteration beside the unsharded solve's and the
+     host-staging share), solve_multi_sharded on config 5's masses at
+     32^3x64 (each true residual within TOL_MULTI), two config-4
+     trajectories (unsmeared) at 8^4 over (1,1,1,2) against the same
+     draws without a mesh (phase 5's gates), and on the second pair the
+     two ranks' pario file of 24^4 links read back and a flipped byte
+     caught, the dry run (qex_tpu_torch.parallel.dryrun) over two ranks,
+     and the app staghmc_spv under torchrun with -rank_geom=1x1x1x2 for
+     one trajectory (8^4);
+ 40. io_formats: LIME with the checksum codec and with its zlib loop at
+     24^4 and 32^3x64, MILC, modfile and timeslice files at 24^4, each
+     written from the card and read back bit for bit with its checksum;
+     the pario file of phase 39 byte for byte the serial LIME file of its
+     field; lat_util check and cmp;
+ 41. suite: qex_tpu_torch.bench.suite at 16^4, 0.02 s a measurement.
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28-38) and read just
-after it; 19-21, the pure-gauge apps of 22 and 33-38 must launch no
-kernel, staghmc_spv B1.  Then
+7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28-38, and in each rank
+of 39 before its solves) and read just after it; 19-21, the pure-gauge
+apps of 22 and 33-38 must launch no kernel, staghmc_spv B1.  Then
 the card line, the kernels summary and, last, the ok line.  Any failed
 check raises, so the script exits non-zero and prints no ok line;
 without a CUDA device it exits non-zero at once.
@@ -680,8 +709,9 @@ def phase_solve(gen) -> dict:
     return res
 
 
-def config4_theory(lat, smear=None, sloppy: bool = False):
-    """exp_northstar32.py:45-56 composition (``smear=None``: unsmeared)."""
+def config4_theory(lat, smear=None, sloppy: bool = False, mesh=None):
+    """exp_northstar32.py:45-56 composition (``smear=None``: unsmeared;
+    ``mesh``: its solves over a rank mesh)."""
     from qex_tpu_torch.gauge import action as ga
     from qex_tpu_torch.mcmc.theory import (FermionSpec, GaugeActionSpec,
                                            LatticeFieldTheory)
@@ -693,9 +723,10 @@ def config4_theory(lat, smear=None, sloppy: bool = False):
                   FermionSpec("boson", mass=0.5, steps=6, scheme="2MN")],
         smear=smear, bc="pppa",
         solver_params=SolverParams(r2req=1e-10, maxits=1500, restarts=3,
-                                   sloppy=sloppy),
+                                   sloppy=sloppy, mesh=mesh),
         force_solver_params=SolverParams(r2req=1e-8, maxits=1500,
-                                         restarts=2, sloppy=sloppy),
+                                         restarts=2, sloppy=sloppy,
+                                         mesh=mesh),
         tau=0.5)
 
 
@@ -3140,6 +3171,566 @@ def phase_gauge_fix(gen, dev="cuda", dims=FIX_DIMS, iters=FIX_ITERS) -> dict:
     return res
 
 
+# --- the domain-decomposed path on the one card ------------------------------
+
+# phase 39 (sharded): ranks are processes sharing the card over gloo, every
+# exchange staged through host memory; geometries and volumes
+SHARD_GEOMS2 = ((1, 1, 2, 1), (1, 1, 1, 2))
+SHARD_GEOM4 = (1, 1, 2, 2)
+SHARD_DIMS8 = (24, 24, 24, 24)
+SHARD_DIMS16 = (32, 32, 32, 64)          # config 5's volume
+SHARD_HMC_DIMS = (8, 8, 8, 8)
+SHARD_APP_ARGS = ["-ns=8", "-nt=8", "-rank_geom=1x1x1x2", "--ntraj", "1"]
+CONFIG5_MASSES = (0.05, 0.1, 0.2, 0.4)
+# phase 40 (io_formats): the volumes of the io row of PERF.md; MILC,
+# modfile and timeslice files at the first only (at 32^3x64 their numpy
+# codecs took 25.5, 3.9 and 24.3 s on an H100's host, over the phase's
+# time)
+IO_DIMS = ((24, 24, 24, 24), (32, 32, 32, 64))
+
+
+def _seeded_links(lat, dev, seed: int, scale: float):
+    """expm(scale * tah) links from a generator of their own, the same
+    in every process that asks (a rank's field equals the parent's)."""
+    return random_links(lat, torch.Generator(device=dev).manual_seed(seed),
+                        scale=scale)
+
+
+def _shard_fields(dev, dims8, dims16):
+    """(8-term fast links, 16-term fast links, vector 8, vector 16), the
+    same in every process: B1's expm(0.7 tah) links and B2's fat and long
+    links of expm(HISQ_START tah) links."""
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.physics import staggered as st
+    lat8, lat16 = Lattice(dims8), Lattice(dims16)
+    fs8 = sf.new_fast(st.new_stag_eo(lat8, _seeded_links(lat8, dev, SEED + 21,
+                                                         0.7)))
+    with torch.no_grad():
+        f16 = sf.new_fast3(st.new_stag3_eo(lat16, *hisq_links(
+            lat16, _seeded_links(lat16, dev, SEED + 22, HISQ_START))))
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    return fs8, f16, fast_vector(lat8, g), fast_vector(lat16, g)
+
+
+def _shard_operators(lm, kind: str, f, x, m: float) -> dict:
+    """For float32 and bfloat16 links: the sharded d2ee and d2dd against
+    the unsharded kernel operators on the same card (gathered), and each
+    rank's local hop (both parities) against its plain twin on its
+    block; squared relative deviations, the worst over the ranks."""
+    from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.physics import stag_shard as shd
+    new, d2ee, d2dd, hop = (
+        (sh.new_stag8, sh.d2ee_stag8, sh.d2dd_stag8, sh.dslash_stag8)
+        if kind == "stag8" else
+        (sh.new_hisq16, sh.d2ee_hisq16, sh.d2dd_hisq16, sh.dslash_hisq16))
+    out = {}
+    xb = shd.fast_block(lm, x)
+    for ldt in (torch.float32, torch.bfloat16):
+        name = f"{kind}_dslash" + ("_bf16" if ldt == torch.bfloat16 else "")
+        p = new(f, ldt)
+        pl = shd.local_links(lm, p)
+        ee = shd.gather_fast(lm, shd.d2ee_sharded(lm, pl, xb, m))
+        dd = shd.gather_fast(lm, shd.d2dd_sharded(lm, pl, xb))
+        ref_ee, ref_dd = d2ee(p, x, m), d2dd(p, x)
+        local = [rel2(hop(pl, xb, par), shd.hop3_ref(
+            pl.lat, pl.l_e if par == 0 else pl.l_o, xb, par))
+            for par in (0, 1)]
+        worst = lm.all_gather(torch.tensor(max(local), dtype=torch.float64,
+                                           device=x.device))
+        out[name] = {"rel2_d2ee": rel2(ee, ref_ee),
+                     "rel2_d2dd": rel2(dd, ref_dd),
+                     "rel2_local_hop_vs_twin": float(max(worst)),
+                     "max_abs_err": max(float((ee - ref_ee).abs().max()),
+                                        float((dd - ref_dd).abs().max()))}
+        del p, pl
+    return out
+
+
+def _shard_rank(rank: int, nranks: int, init: str, dev: str, sizes: dict,
+                queue) -> None:
+    """One rank of phase 39 (see :func:`phase_sharded`)."""
+    import torch.distributed as dist
+    import qex_tpu_torch  # noqa: F401  (pins full-f32 arithmetic)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=nranks,
+                            rank=rank)
+    try:
+        queue.put((rank, _shard_checks(rank, dev, sizes)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_checks(rank: int, dev: str, sizes: dict) -> dict:
+    import torch.distributed as dist
+    from qex_tpu_torch.io import lime, pario
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.ops import eo, linalg
+    from qex_tpu_torch.parallel import dryrun
+    from qex_tpu_torch.parallel.mesh import local_block, make_lattice_mesh
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.physics import stag_shard as shd
+    from qex_tpu_torch.physics import stag_solve
+    from qex_tpu_torch.physics import staggered as st
+    from qex_tpu_torch.solvers.base import SolverParams
+    cuda = dev != "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    marks = [time.perf_counter()]
+    laps = {}
+
+    def lap(name):
+        sync()
+        marks.append(time.perf_counter())
+        laps[name] = marks[-1] - marks[-2]
+
+    lat8, lat16 = Lattice(sizes["dims8"]), Lattice(sizes["dims16"])
+    fs8, f16, x8, x16 = _shard_fields(dev, sizes["dims8"], sizes["dims16"])
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    pair = pairs[rank // 2]
+    out = {"operators": {}, "seconds": laps}
+    lap("fields")
+    # the operators: the pairs' geometries at once, then the four ranks'
+    for geom, group in ((SHARD_GEOMS2[rank // 2], pair), (SHARD_GEOM4, None)):
+        for kind, lat, f, x, m in (("stag8", lat8, fs8, x8, 0.05),
+                                   ("hisq16", lat16, f16, x16, 0.05)):
+            lm = make_lattice_mesh(lat, geom, group=group)
+            res = _shard_operators(lm, kind, f, x, m)
+            if lm.rank == 0:
+                out["operators"][f"{kind} {geom}"] = res
+    dist.barrier()
+    lap("operators")
+
+    # --- the main path, counted ------------------------------------------
+    sync()
+    reset_counts()
+    lm = make_lattice_mesh(lat8, SHARD_GEOM4)
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    b = torch.randn(lat8.vector_shape(), dtype=x8.dtype, generator=g,
+                    device=dev)
+    be, bo = eo.pack(b, 4)
+    s8 = st.StaggeredEO(lat8, sf.from_fast(fs8.g_e, lat8),
+                        sf.from_fast(fs8.g_o, lat8))
+    rhs = 0.05 * be - st.dslash_eo(s8, bo, 0)
+    params = SolverParams(r2req=1e-10, maxits=5000, restarts=5)
+    stats0 = dict(lm.stats)
+    sync()
+    t0 = time.perf_counter()
+    x_e, stats = shd.solve_ee_sharded(lm, fs8, rhs, 0.05, params)
+    sync()
+    secs = time.perf_counter() - t0
+    staged = lm.stats["staged_s"] - stats0["staged_s"]
+    copies = lm.stats["copy_s"] - stats0["copy_s"]
+    # B2: config 5's multishift on the four ranks
+    lm16 = make_lattice_mesh(lat16, SHARD_GEOM4)
+    b16 = sf.from_fast(x16, lat16)
+    sync()
+    t0 = time.perf_counter()
+    xs16, stats16 = shd.solve_multi_sharded(
+        lm16, f16, b16, CONFIG5_MASSES,
+        SolverParams(r2req=1e-10, maxits=2000))
+    sync()
+    secs16 = time.perf_counter() - t0
+    dist.barrier()
+    lap("solves")
+    # two config-4 trajectories over a pair, the other pair's first rank
+    # running them without a mesh on the same draws; then pario and the
+    # dry run over the second pair
+    app = None
+    if rank == 2 and sizes.get("app_argv"):
+        # the app under torchrun, two ranks of its own, while this pair
+        # and the first run their trajectories, pario and the dry run
+        app = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", "2", "--master_port", str(sizes["app_port"]),
+             "-m", "qex_tpu_torch.apps.staghmc_spv", *sizes["app_argv"]],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    lat_h = Lattice(sizes["hmc_dims"])
+    u_h = _seeded_links(lat_h, dev, SEED + 25, AB_SMEARED_START)
+    if rank <= 2:
+        th = config4_theory(lat_h, mesh=(make_lattice_mesh(
+            lat_h, SHARD_GEOMS2[1], group=pair) if rank < 2 else None))
+        gen_h = torch.Generator(device=dev).manual_seed(SEED + 26)
+        u1, dhs = u_h, []
+        for _ in range(2):
+            u1, state = th.hmc_step(gen_h, u1, always_accept=True)
+            dhs.append(state.dH)
+        out["hmc"] = {"dH": dhs, "h_old": state.h_old,
+                      "links": u1.cpu().numpy()}
+        lap("hmc")
+    if rank >= 2:
+        lat_io = Lattice(sizes["io_dims"])
+        lm_io = make_lattice_mesh(lat_io, (1, 1, 1, 2), group=pair)
+        u_io = _seeded_links(lat_io, dev, SEED + 27, 0.7)
+        path = sizes["pario_path"]
+        blk = local_block(lm_io, u_io)
+        t0 = time.perf_counter()
+        pario.save_gauge_parallel(path, lat_io, lm_io, blk)
+        t_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = pario.load_gauge_parallel(path, lat_io, lm_io, device=dev)
+        t_r = time.perf_counter() - t0
+        rec = {"write_s": t_w, "read_s": t_r,
+               "read_back_equal": bool(torch.equal(back, blk)),
+               "checksum_route": pario.native.last_route}
+        bad = path + ".bad"
+        if lm_io.rank == 0:
+            raw = bytearray(Path(path).read_bytes())
+            off = dict((t, o) for t, o, _ in pario._scan_records(path))[
+                "scidac-binary-data"]
+            raw[off + 4321] ^= 0x5A
+            Path(bad).write_bytes(bytes(raw))
+        lm_io.barrier()
+        try:
+            pario.load_gauge_parallel(bad, lat_io, lm_io)
+            rec["flipped_byte"] = "not detected"
+        except ValueError as e:
+            rec["flipped_byte"] = str(e)
+        out["pario"] = rec
+        lap("pario")
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun.body(dev, 2, pg=pair)
+        out["dryrun"]["seconds"] = time.perf_counter() - t0
+        lap("dryrun")
+        if app is not None:
+            t0, proc = app
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            out["app"] = {"rc": proc.returncode, "lines": stdout.splitlines(),
+                          "stderr_tail": stderr[-8000:],
+                          "seconds": time.perf_counter() - t0}
+            lap("app_wait")
+    sync()
+    out["kernel_launches"] = read_counts()
+    dist.barrier()
+    lap("main_path_end")
+
+    if rank == 0:
+        # the same solve unsharded on this card, its true residual by the
+        # plain canonical operator in complex128
+        s = st.StaggeredEO(lat8, s8.g_e, s8.g_o)
+        sync()
+        t0 = time.perf_counter()
+        x_ref, stats_ref = stag_solve.solve_ee(s, rhs, 0.05, params)
+        sync()
+        secs_ref = time.perf_counter() - t0
+        s64 = st.StaggeredEO(lat8, s8.g_e.to(torch.complex128),
+                             s8.g_o.to(torch.complex128))
+        p16 = sh.new_hisq16(f16)
+        bf16 = sf.to_fast(b16, lat16)
+        b2 = float(linalg.norm2(bf16, torch.float64))
+        out["solve_ee"] = {
+            "dims": list(lat8.dims), "rank_geom": list(SHARD_GEOM4),
+            "m": 0.05, "r2req": params.r2req,
+            "iterations": stats.iterations,
+            "iterations_unsharded": stats_ref.iterations,
+            "true_rel_r2": _even_true_r2(s64, x_e, 0.05, rhs),
+            "true_rel_r2_unsharded": _even_true_r2(s64, x_ref, 0.05, rhs),
+            "seconds": secs, "seconds_unsharded": secs_ref,
+            "seconds_per_iteration": secs / max(stats.iterations, 1),
+            "seconds_per_iteration_unsharded":
+                secs_ref / max(stats_ref.iterations, 1),
+            "host_staged_s": staged, "host_copy_s": copies,
+            "host_staging_share": staged / secs}
+        out["solve_multi"] = {
+            "dims": list(lat16.dims), "rank_geom": list(SHARD_GEOM4),
+            "masses": list(CONFIG5_MASSES), "r2req": 1e-10,
+            "iterations": stats16.iterations, "seconds": secs16,
+            "seconds_per_iteration": secs16 / max(stats16.iterations, 1),
+            "true_rel_r2": [float(linalg.norm2(
+                sh.d2ee_hisq16(p16, sf.to_fast(x, lat16), m) - bf16,
+                torch.float64)) / b2 for x, m in zip(xs16, CONFIG5_MASSES)]}
+    return out
+
+
+def _spawn(fn, nranks: int, args: tuple, timeout: float) -> dict:
+    """Run ``fn(rank, nranks, *args, queue)`` in ``nranks`` processes;
+    {rank: what it put}.  Raises if a rank fails or they outlast
+    ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    procs = mp.start_processes(fn, args=(nranks, *args, queue),
+                               nprocs=nranks, join=False,
+                               start_method="spawn")
+    deadline = time.monotonic() + timeout
+    got = {}
+    try:
+        while len(got) < nranks:
+            if not queue.empty():
+                r, res = queue.get()
+                got[r] = res
+            elif procs.join(timeout=0.1):
+                if queue.empty():
+                    raise AssertionError(f"{nranks} ranks ended with "
+                                         f"{len(got)} results")
+            elif time.monotonic() > deadline:
+                raise AssertionError(f"{nranks} ranks outlasted {timeout} s")
+        while not procs.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{nranks} ranks outlasted {timeout} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+    return got
+
+
+def _nccl_one_rank(dims8) -> dict:
+    """A one-rank NCCL group at (1,1,1,1) in this process: the block
+    operators (B1, no exchange) equal the unsharded kernel operators bit
+    for bit, and a block solve's all-reduced sums go through NCCL."""
+    import torch.distributed as dist
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.parallel.distributed import free_port
+    from qex_tpu_torch.parallel.mesh import make_lattice_mesh
+    from qex_tpu_torch.physics import stag_fast as sf
+    from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.physics import stag_shard as shd
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice(dims8)
+    fs8, _, x, _ = _shard_fields("cuda", dims8, (8, 8, 8, 8))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        lm = make_lattice_mesh(lat, (1, 1, 1, 1))
+        rec = {"backend": dist.get_backend()}
+        for ldt in (torch.float32, torch.bfloat16):
+            p = sh.new_stag8(fs8, ldt)
+            pl = shd.local_links(lm, p)
+            xb = shd.fast_block(lm, x)
+            rec[str(ldt)] = {
+                "d2ee_equal": bool(torch.equal(
+                    shd.d2ee_sharded(lm, pl, xb, 0.05),
+                    sh.d2ee_stag8(p, x, 0.05))),
+                "d2dd_equal": bool(torch.equal(
+                    shd.d2dd_sharded(lm, pl, xb), sh.d2dd_stag8(p, x)))}
+        _, stats = shd.solve_ee_sharded(lm, fs8, sf.from_fast(x, lat), 0.05,
+                                        SolverParams(r2req=1e-10,
+                                                     maxits=5000))
+        rec["solve_iterations"] = stats.iterations
+        rec["solve_r2"] = stats.r2
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def phase_sharded(dev: str = "cuda", sizes: dict | None = None) -> dict:
+    """Phase 39: the domain-decomposed path with four ranks sharing the
+    card through host-staged gloo (see the module docstring), the
+    one-rank NCCL group, the app under two ranks."""
+    from qex_tpu_torch.parallel.distributed import free_port
+    sizes = dict({"dims8": SHARD_DIMS8, "dims16": SHARD_DIMS16,
+                  "hmc_dims": SHARD_HMC_DIMS, "io_dims": IO_DIMS[0],
+                  "pario_path": str(ROOT / "build" / "chip_smoke_pario.lime")},
+                 **(sizes or {}))
+    Path(sizes["pario_path"]).parent.mkdir(parents=True, exist_ok=True)
+    res = {"phase": "sharded", "ranks": 4, "backend": "gloo",
+           "note": "four processes share one card; every exchange and sum "
+                   "is staged through host memory: not a multi-GPU figure"}
+    if dev != "cpu":
+        # the ranks and the app share the card with this process: hand
+        # back what its allocator holds from the earlier phases
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["nccl_one_rank"] = _nccl_one_rank(sizes["dims8"])
+        res["nccl_one_rank"]["seconds"] = time.perf_counter() - t0
+        deck = str(ROOT / "qex_tpu_torch" / "apps" / "decks"
+                   / "config4_24.xml")
+        sizes.update(app_argv=["--xml", deck, *SHARD_APP_ARGS],
+                     app_port=free_port())
+    t0 = time.perf_counter()
+    got = _spawn(_shard_rank, 4, (f"tcp://localhost:{free_port()}", dev,
+                                  sizes), timeout=600)
+    res["ranks_seconds"] = time.perf_counter() - t0
+    r0, r2 = got[0], got[2]
+    res["operators"] = {**r0["operators"], **r2["operators"]}
+    res["solve_ee"], res["solve_multi"] = r0["solve_ee"], r0["solve_multi"]
+    u_mesh, u_ref = r0["hmc"].pop("links"), r2["hmc"].pop("links")
+    res["hmc"] = {"dims": list(sizes["hmc_dims"]),
+                  "rank_geom": list(SHARD_GEOMS2[1]),
+                  "dH_mesh": r0["hmc"]["dH"], "dH": r2["hmc"]["dH"],
+                  "h_old": r2["hmc"]["h_old"],
+                  "max_link_dev": float(abs(u_mesh - u_ref).max())}
+    res["pario"], res["dryrun"] = r2["pario"], r2["dryrun"]
+    res["rank_seconds"] = {"rank0": r0["seconds"], "rank2": r2["seconds"]}
+    launches = {k: sum(got[r]["kernel_launches"][k] for r in got)
+                for k in got[0]["kernel_launches"]}
+    if "app" in r2:
+        app = r2["app"]
+        for ln in app["lines"]:
+            print("  | " + ln, flush=True)
+        res["app"] = {"argv": SHARD_APP_ARGS, "rc": app["rc"],
+                      "seconds": app["seconds"],
+                      "dH": [float(ln.split()[2]) for ln in app["lines"]
+                             if ln.startswith(("ACCEPT", "REJECT"))]}
+        if app["rc"] != 0:
+            res["app"]["stderr_tail"] = app["stderr_tail"]
+    res["kernel_launches"] = launches
+    emit(res)
+    _check_sharded(res, dev)
+    return res
+
+
+def _check_sharded(res: dict, dev: str) -> None:
+    for key, rec in res["operators"].items():
+        for name, r in rec.items():
+            for k in ("rel2_d2ee", "rel2_d2dd", "rel2_local_hop_vs_twin"):
+                if not r[k] <= TOL_KERNEL:
+                    raise AssertionError(f"sharded {key} {name}: {k} {r[k]}")
+    for ldt, r in res.get("nccl_one_rank", {}).items():
+        if isinstance(r, dict) and not (r["d2ee_equal"] and r["d2dd_equal"]):
+            raise AssertionError(f"sharded: one-rank NCCL group {ldt} "
+                                 "differs from the unsharded operator")
+    if dev != "cpu" or "app" in res:
+        if res["app"]["rc"] != 0 or len(res["app"]["dH"]) != 1 \
+                or not math.isfinite(res["app"]["dH"][0]):
+            raise AssertionError(f"sharded: app {res['app']}")
+    s = res["solve_ee"]
+    if s["iterations"] != s["iterations_unsharded"]:
+        raise AssertionError(f"sharded: {s['iterations']} CG iterations "
+                             f"against {s['iterations_unsharded']}")
+    if not s["true_rel_r2"] <= TOL_RES:
+        raise AssertionError(f"sharded: solve true residual "
+                             f"{s['true_rel_r2']}")
+    for m, r in zip(CONFIG5_MASSES, res["solve_multi"]["true_rel_r2"]):
+        if not r <= TOL_MULTI:
+            raise AssertionError(f"sharded: multishift mass {m} true "
+                                 f"residual {r}")
+    h = res["hmc"]
+    if not h["max_link_dev"] <= TOL_AB_LINK:
+        raise AssertionError(f"sharded: hmc link deviation {h}")
+    for a, b in zip(h["dH_mesh"], h["dH"]):
+        if not abs(a - b) <= TOL_AB_DH_REL_H * abs(h["h_old"]):
+            raise AssertionError(f"sharded: hmc dH {h}")
+    p = res["pario"]
+    if not (p["read_back_equal"]
+            and "checksum mismatch" in p["flipped_byte"]):
+        raise AssertionError(f"sharded: pario {p}")
+    needed = ("stag8_dslash", "hisq16_dslash") if dev != "cpu" else ()
+    for k in needed:
+        if res["kernel_launches"][k] <= 0:
+            raise AssertionError(f"sharded: {k} never launched")
+
+
+def _time_io(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_io_formats(dev: str = "cuda", dims_list=IO_DIMS,
+                     pario_rec: dict | None = None) -> dict:
+    """Phase 40: MILC, modfile, timeslice and SciDAC/LIME files of
+    expm(0.7 tah) links at each volume, written from the card, read back
+    bit for bit, checksums verified; LIME with the checksum codec and
+    with its zlib loop (the io row of PERF.md); the two ranks' pario file
+    of phase 39 against the serial LIME file of the same field; lat_util
+    check and cmp."""
+    import tempfile
+
+    import numpy as np
+
+    from qex_tpu_torch.apps import lat_util
+    from qex_tpu_torch.io import lime, milc, modfile, native, timeslice
+    from qex_tpu_torch.lattice import Lattice
+    res = {"phase": "io_formats", "codec_built": native.library() is not None}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as td:
+        for dims in dims_list:
+            lat = Lattice(dims)
+            u = _seeded_links(lat, dev, SEED + 27, 0.7)
+            arr = u.cpu().numpy()
+            rec = {}
+            path = str(Path(td) / "cfg.lime")
+            for route in ("native", "zlib"):
+                with (native.zlib_only() if route == "zlib"
+                      else contextlib.nullcontext()):
+                    _, t_w = _time_io(lambda: lime.save_gauge(path, lat, u))
+                    route_w = native.last_route
+                    back, t_r = _time_io(lambda: lime.load_gauge(path, lat))
+                    rec[f"lime_{route}"] = {
+                        "route": route_w, "write_s": t_w, "read_s": t_r,
+                        "bytes": Path(path).stat().st_size,
+                        "bit_equal": bool(np.array_equal(back, arr))}
+            res[dims_label(dims)] = rec
+            if dims != tuple(dims_list[0]):
+                del u, arr, back
+                continue
+            mpath = str(Path(td) / "cfg.milc")
+            _, t_w = _time_io(lambda: milc.save_milc(mpath, lat, u))
+            (back, _ts), t_r = _time_io(lambda: milc.load_milc(mpath))
+            rec["milc"] = {"write_s": t_w, "read_s": t_r,
+                           "bit_equal": bool(np.array_equal(back, arr))}
+            fpath = str(Path(td) / "cfg.mod")
+            w = modfile.ModFileWriter(fpath, userdata="<info>links</info>")
+            _, t_w = _time_io(lambda: w.add_field(modfile.pack_key((0,)), lat,
+                                                  u, precision="F"))
+            w.close()
+            r = modfile.ModFileReader(fpath)
+            back, t_r = _time_io(lambda: r.read_field(
+                modfile.pack_key((0,)), lat, (4, 3, 3), precision="F"))
+            r.close()
+            rec["modfile"] = {"write_s": t_w, "read_s": t_r,
+                              "bit_equal": bool(np.array_equal(back, arr))}
+            tpath = str(Path(td) / "cfg.ts")
+            _, t_w = _time_io(
+                lambda: timeslice.write_timeslices(tpath, lat, u))
+            back, t_r = _time_io(lambda: np.stack(
+                [timeslice.read_timeslice(tpath, lat, (4, 3, 3), t)[..., 0]
+                 for t in range(lat.dims[3])], axis=-1))
+            rec["timeslice"] = {"write_s": t_w, "read_s": t_r,
+                                "bit_equal": bool(np.array_equal(back, arr))}
+            # the serial file of phase 39's field, and lat_util on both
+            if pario_rec is not None:
+                ppath = str(ROOT / "build" / "chip_smoke_pario.lime")
+                res["pario"] = dict(pario_rec, bytes_equal_serial=(
+                    Path(ppath).read_bytes() == Path(path).read_bytes()))
+            out = io.StringIO()
+            other = str(Path(td) / "other.lime")
+            lime.save_gauge(other, lat, arr * 1.001)
+            with contextlib.redirect_stdout(out):
+                rc = [lat_util.main(["check", path]
+                                    + (["--cpu"] if dev == "cpu" else [])),
+                      lat_util.main(["cmp", path, path]),
+                      lat_util.main(["cmp", path, other])]
+            res["lat_util"] = {"rc": rc,
+                               "lines": out.getvalue().splitlines()}
+            del u, arr, back
+    emit(res)
+    for dims in dims_list:
+        for fmt, r in res[dims_label(dims)].items():
+            if not r["bit_equal"]:
+                raise AssertionError(f"io_formats {dims} {fmt}: read back "
+                                     "differs")
+    if res["lat_util"]["rc"] != [0, 0, 1]:
+        raise AssertionError(f"io_formats: lat_util {res['lat_util']}")
+    if pario_rec is not None and not res["pario"]["bytes_equal_serial"]:
+        raise AssertionError("io_formats: the pario file differs from the "
+                             "serial file")
+    return res
+
+
+def phase_suite() -> dict:
+    """Phase 41: bench/suite at 16^4 with a 0.02 s budget a measurement;
+    its lines are printed as they come."""
+    from qex_tpu_torch.bench import suite
+    t0 = time.perf_counter()
+    rc = suite.main(["--lat", "16", "16", "16", "16", "--budget", "0.02"])
+    res = {"phase": "suite", "rc": rc, "seconds": time.perf_counter() - t0}
+    emit(res)
+    if rc != 0:
+        raise AssertionError(f"suite exited {rc}")
+    return res
+
+
 def profiled(tag: str, fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall time, device kernel
     count and busy time (sum of kernel durations; one stream, so they
@@ -3264,6 +3855,9 @@ def main() -> int:
     phase_nambu(gen)
     phase_rahmc(gen)
     phase_gauge_fix(gen)
+    sharded = phase_sharded()
+    phase_io_formats(pario_rec=sharded["pario"])
+    phase_suite()
     kern["stag8_dslash"]["max_abs_err"] = max(
         kern["stag8_dslash"]["max_abs_err"],
         ns32["stag8_dslash_vs_plain"]["max_abs_err"])
@@ -3280,15 +3874,17 @@ def main() -> int:
     # each kernel's main path: the smeared config-4 trajectories, the
     # app, the multi-mass and batched solves, the rooted and Hasenbusch
     # runs, the 32^3x64 trajectory, the plain eigensolve, SVD and
-    # calibration, the measure and eigs apps and the app's condensate
-    # for the 8-term kernels, config 5's solves, the HISQ trajectories
-    # (with and without a Hasenbusch mass) and the HISQ eigensolve for
-    # the 16-term ones, the Wilson solves, mesons, MG A/B and the
-    # measure app's Wilson mesons for the Wilson hop, the generation
-    # benchmark's A/B and CG for the older staggered kernels
+    # calibration, the measure and eigs apps, the app's condensate and
+    # the sharded solves, trajectories and dry run for the 8-term
+    # kernels, config 5's solves, the HISQ trajectories (with and
+    # without a Hasenbusch mass), the HISQ eigensolve and the sharded
+    # multishift and dry run for the 16-term ones, the Wilson solves,
+    # mesons, MG A/B and the measure app's Wilson mesons for the Wilson
+    # hop, the generation benchmark's A/B and CG for the older
+    # staggered kernels
     paths = {"stag8": (smeared, app, smulti, rhmc, hasen, ns32, eigs_stag,
-                       meas, app_pbp),
-             "hisq16": (hsolve, hhmc, hasen, eigs_hisq),
+                       meas, app_pbp, sharded),
+             "hisq16": (hsolve, hhmc, hasen, eigs_hisq, sharded),
              "wilson8": (wsolve, wmesons, wmg, meas),
              **{kind: (gtime, gcg) for kind in GEN_KINDS}}
     kernels = []

@@ -27,8 +27,10 @@ def hisq_theory(lat):
     """BASELINE config 5's fermion in an HMC: Wilson beta=7.0 (12 x 2MN)
     and one HISQ fermion m=0.05 (6 x 2MN), bc pppa, tau 0.5, solves at
     r2req 1e-10 (maxits 1500, 3 restarts) and forces at 1e-8 (2
-    restarts).  Wilson stands in for config 5's Symanzik action, whose
-    rect term is not ported."""
+    restarts).  Wilson stands in for config 5's Symanzik action (the
+    port has its rect term too, ``gauge.action.symanzik``); the
+    Wilson action is kept so that the HISQ phases of ``chip_smoke.py``
+    stay comparable with their earlier runs."""
     from qex_tpu_torch.gauge import action as ga
     from qex_tpu_torch.mcmc.theory import (FermionSpec, GaugeActionSpec,
                                            LatticeFieldTheory)

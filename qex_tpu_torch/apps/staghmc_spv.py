@@ -11,7 +11,9 @@ checks, and checkpoints.
 
 Usage:
     python -m qex_tpu_torch.apps.staghmc_spv --xml deck.xml \
-        [--ntraj N] [--cpu] [-key=value ...]
+        [--ntraj N] [--cpu] [--profile] [-key=value ...]
+    torchrun --nproc_per_node=2 -m qex_tpu_torch.apps.staghmc_spv \
+        --xml deck.xml -rank_geom=1x1x1x2 ...
 
 It runs on the CUDA card in complex64; ``--cpu`` runs on the host in
 complex128.  Output lines carry the reference's tags: ``Begin H``,
@@ -19,6 +21,14 @@ complex128.  Output lines carry the reference's tags: ``Begin H``,
 ``MEASploop``, ``MEASpbp`` (every ``pbp_freq`` trajectories, the
 chiral condensate of ``observables.condensate`` on the unsmeared links),
 ``SOLVER``, ``REVCHECK``.
+
+``-rank_geom`` splits the lattice over the ranks of a process group
+(``parallel.mesh``): the staggered and HISQ solves run on each rank's
+block (``physics.stag_shard``), and everything else, the gauge field
+included, is replicated on every rank, each drawing the same momenta
+and noise from the same seeded generators, so the chain is the one run
+without a mesh.  Rank 0 prints and saves.  ``--profile`` prints a timer
+tree of each trajectory (``utils.profile``).
 
 Each trajectory draws from a ``torch.Generator`` seeded from
 ``(serial_seed, traj)`` (the hot start from ``parallel_seed``), so a
@@ -28,12 +38,15 @@ resume from a checkpoint repeats the chain.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import os
 import sys
 import time
 
 import torch
 
+from qex_tpu_torch.parallel import distributed
 from qex_tpu_torch.rng import seeded_generator
 
 # words appended to (serial_seed, traj) for the per-trajectory checks,
@@ -45,9 +58,9 @@ _REVCHECK_WORD = 202
 _PBP_WORD = 10_000
 
 
-def build_theory(cfg, lat):
+def build_theory(cfg, lat, mesh=None):
     """The port's LatticeFieldTheory for an HMCConfig (the JAX app's
-    ``build_theory``)."""
+    ``build_theory``); ``mesh`` splits its solves over a rank mesh."""
     from qex_tpu_torch.gauge import action as ga
     from qex_tpu_torch.gauge.smear import HypCoefs
     from qex_tpu_torch.mcmc.theory import (FermionSpec, GaugeActionSpec,
@@ -104,12 +117,27 @@ def build_theory(cfg, lat):
     return LatticeFieldTheory(
         lat, gauges, fermions, smear=smear, bc=cfg.bc,
         solver_params=SolverParams(r2req=cfg.a_tol, maxits=cfg.a_maxits,
-                                   restarts=3, sloppy=sloppy),
+                                   restarts=3, sloppy=sloppy, mesh=mesh),
         # MD-force solves at the (usually looser) f_tol/f_maxits
         force_solver_params=SolverParams(r2req=cfg.f_tol,
                                          maxits=cfg.f_maxits, restarts=3,
-                                         sloppy=sloppy),
+                                         sloppy=sloppy, mesh=mesh),
         tau=cfg.tau)
+
+
+def profile_patches(theory) -> list:
+    """The calls ``--profile`` times inside a trajectory: (name, owner,
+    attribute) for :meth:`utils.profile.Profiler.timing`."""
+    from qex_tpu_torch.mcmc import md
+    from qex_tpu_torch.physics import stag_solve
+    from qex_tpu_torch.physics.stag_hmc import (HisqFermion,
+                                                StagRootedFermion)
+    return [("smear_forward", theory, "_smear"),
+            ("smear_pullback", md, "_pullback"),
+            ("solve_ee", stag_solve, "solve_ee"),
+            ("solve_multi", stag_solve, "solve_multi"),
+            ("hisq_solve", HisqFermion, "_solve_links"),
+            ("rooted_multishift", StagRootedFermion, "_multishift")]
 
 
 def hot_start(lat, dtype, device, seed: int, scale: float = 0.7
@@ -135,8 +163,9 @@ def main(argv=None) -> int:
                     help="run on the host in complex128 (default: the "
                     "CUDA card in complex64)")
     ap.add_argument("--profile", action="store_true",
-                    help="not ported: the JAX app's per-phase timer tree "
-                    "needs its split-step dispatcher")
+                    help="print a per-trajectory timer tree (smear forward "
+                    "and pullback, solves; QEX profile.nim echoTimers "
+                    "role), with a device sync around each timed call")
     ap.add_argument("overrides", nargs="*",
                     help="-key=value config overrides")
     args, unknown = ap.parse_known_args(argv)
@@ -145,22 +174,13 @@ def main(argv=None) -> int:
     bad = [a for a in unknown if not (a.startswith("-") and "=" in a)]
     if bad:
         ap.error(f"unrecognized arguments: {bad}")
-    if args.profile:
-        raise NotImplementedError(
-            "--profile: the split-step dispatcher it times is not ported "
-            "(ROADMAP: do not port it)")
     if not args.cpu and not torch.cuda.is_available():
         print("staghmc_spv: no CUDA device; pass --cpu to run on the host",
               file=sys.stderr)
         return 2
 
     import qex_tpu_torch  # noqa: F401  (pins full-f32 arithmetic)
-    from qex_tpu_torch.gauge import loops
-    from qex_tpu_torch.io import checkpoint as ckpt
     from qex_tpu_torch.lattice import Lattice
-    from qex_tpu_torch.observables import condensate
-    from qex_tpu_torch.ops import group
-    from qex_tpu_torch.solvers.base import SolverParams
     from qex_tpu_torch.utils.config import HMCConfig
 
     if args.xml:
@@ -174,15 +194,59 @@ def main(argv=None) -> int:
         k, _, v = ov.lstrip("-").partition("=")
         kvs[k] = v
     cfg.override(kvs)
-    if cfg.rank_geom:
-        raise NotImplementedError(
-            "rank_geom: multi-GPU runs are not ported yet (ROADMAP A11)")
     ntraj = args.ntraj if args.ntraj is not None else cfg.num_trajectories
 
     device = torch.device("cpu" if args.cpu else "cuda")
     dtype = torch.complex128 if args.cpu else torch.complex64
     lat = Lattice(cfg.dims)
-    theory = build_theory(cfg, lat)
+    lm, own_group = None, False
+    if cfg.rank_geom:
+        lm, own_group = _rank_mesh(cfg.rank_geom, lat, args)
+        if not args.cpu:
+            device = torch.device("cuda", distributed.local_rank()
+                                  % torch.cuda.device_count())
+    try:
+        with (contextlib.redirect_stdout(io.StringIO())
+              if lm is not None and lm.rank != 0
+              else contextlib.nullcontext()):
+            return _run(args, cfg, lat, lm, device, dtype, ntraj)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _rank_mesh(rank_geom: str, lat, args):
+    """(mesh, whether this call started the process group) of the deck's
+    ``rank_geom`` ("gx,gy,gz,gt" or "gxxgyxgzxgt").  Under torchrun the
+    group is started here: NCCL where every rank has a card of its own,
+    else gloo (ranks on the host, or sharing one card through host
+    memory)."""
+    import torch.distributed as dist
+
+    from qex_tpu_torch.parallel.mesh import make_lattice_mesh
+    rg = [int(x) for x in rank_geom.replace("x", ",").split(",") if x]
+    own = False
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        ws = int(os.environ["WORLD_SIZE"])
+        distributed.initialize("nccl" if not args.cpu
+                               and ws <= torch.cuda.device_count()
+                               else "gloo")
+        own = True
+    return make_lattice_mesh(lat, rank_geom=rg), own
+
+
+def _run(args, cfg, lat, lm, device, dtype, ntraj) -> int:
+    from qex_tpu_torch.gauge import loops
+    from qex_tpu_torch.io import checkpoint as ckpt
+    from qex_tpu_torch.observables import condensate
+    from qex_tpu_torch.ops import group
+    from qex_tpu_torch.solvers.base import SolverParams
+    from qex_tpu_torch.utils import profile
+
+    theory = build_theory(cfg, lat, mesh=lm)
+    if lm is not None:
+        print(f"# rank mesh rank_geom={lm.rank_geom} ({lm.size} ranks"
+              f"{', host-staged' if lm.staged else ''})")
     print(f"# staghmc_spv: lattice {lat.dims} nf={cfg.nf} "
           f"mass={cfg.mass} num_pv={cfg.num_pv} mass_pv={cfg.mass_pv} "
           f"beta={cfg.beta} tau={cfg.tau} sloppy={bool(cfg.sloppy_solve)} "
@@ -208,17 +272,26 @@ def main(argv=None) -> int:
     else:
         u = hot_start(lat, dtype, device, cfg.parallel_seed)
 
+    prof = profile.Profiler() if args.profile else None
     for traj in range(start_traj, start_traj + ntraj):
         t0 = time.time()
         warmup = traj < cfg.no_metropolis_until
-        u, st = theory.hmc_step(
-            seeded_generator(device, cfg.serial_seed, traj), u,
-            always_accept=warmup)
+        gen = seeded_generator(device, cfg.serial_seed, traj)
+        if prof is None:
+            u, st = theory.hmc_step(gen, u, always_accept=warmup)
+        else:
+            with prof.timing(profile_patches(theory), sync=device), \
+                    prof.timer("trajectory", sync=device):
+                u, st = theory.hmc_step(gen, u, always_accept=warmup)
         n_acc += int(st.accepted and not warmup)
         print(f"Begin H: {st.h_old:.15g}")
         print(f"End H: {st.h_new:.15g}")
         print(f"{'ACCEPT' if st.accepted else 'REJECT'}: dH {st.dH:.6g} "
               f"({time.time() - t0:.2f} s){' [warmup]' if warmup else ''}")
+        if prof is not None:
+            print("PROFILE trajectory phase tree:")
+            print(prof.report())
+            prof.reset()
         if cfg.check_solvers:
             report = theory.solver_report(seeded_generator(
                 device, cfg.serial_seed, traj, _SOLVER_WORD), u)
@@ -248,7 +321,8 @@ def main(argv=None) -> int:
                     params=SolverParams(r2req=cfg.a_tol,
                                         maxits=cfg.a_maxits, restarts=3))
                 print(f"MEASpbp {pbp:.10g}")
-        if cfg.save_freq and (traj + 1) % cfg.save_freq == 0:
+        if (cfg.save_freq and (traj + 1) % cfg.save_freq == 0
+                and (lm is None or lm.rank == 0)):
             fn = os.path.join(cfg.save_path,
                               f"{cfg.save_filename}_{traj + 1}")
             ckpt.save_checkpoint(fn, u,

@@ -25,20 +25,21 @@ big-endian IEEE (precision 'F' = f32, 'D' = f64).
 
 DML checksum (QIO convention): per global site rank r,
 crc = crc32(site bytes); suma ^= rotl32(crc, r % 29);
-sumb ^= rotl32(crc, r % 31).  The JAX package computes it with a C++
-codec where one builds; here it is the per-site ``zlib.crc32`` loop that
-codec replaces (the same numbers; about 1 s for a 24^4 f32 gauge field).
+sumb ^= rotl32(crc, r % 31), computed by the host codec of
+:mod:`.native` (g++-built, as the JAX package's), or by its per-site
+``zlib.crc32`` loop where no compiler is present; ``native.last_route``
+says which ran.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import struct
-import zlib
 
 import numpy as np
 
 from ..lattice import Lattice
+from . import native
 
 LIME_MAGIC = 0x456789AB
 _HDR = struct.Struct(">iHHQ128s")
@@ -88,25 +89,20 @@ def read_lime(path: str) -> list[LimeRecord]:
     return out
 
 
-def _rotl32(x: np.ndarray, k: np.ndarray) -> np.ndarray:
-    k = k % 32
-    return ((x << k) | (x >> (32 - k).astype(np.uint32))) \
-        & np.uint32(0xFFFFFFFF)
-
-
 def dml_checksum(site_bytes: np.ndarray) -> tuple[int, int]:
     """QIO DML checksum of per-site binary data.
 
     site_bytes: (V, bytes_per_site) uint8, in lexicographic site order.
     Returns (suma, sumb).
     """
-    v = site_bytes.shape[0]
-    crcs = np.fromiter((zlib.crc32(row) for row in site_bytes),
-                       np.uint32, count=v)
-    ranks = np.arange(v, dtype=np.uint32)
-    suma = np.bitwise_xor.reduce(_rotl32(crcs, ranks % 29))
-    sumb = np.bitwise_xor.reduce(_rotl32(crcs, ranks % 31))
-    return int(suma), int(sumb)
+    return native.dml_checksum(site_bytes)
+
+
+def host_array(u) -> np.ndarray:
+    """numpy array of ``u``, a numpy array or a tensor on any device."""
+    if hasattr(u, "detach"):
+        return u.detach().cpu().resolve_conj().resolve_neg().numpy()
+    return np.asarray(u)
 
 
 def _to_lex_sites(lat: Lattice, arr: np.ndarray, per_site_shape
@@ -166,7 +162,7 @@ def save_gauge(path: str, lat: Lattice, u, precision: str = "F",
     device."""
     nd, nc = lat.nd, lat.nc
     fdtype = ">c8" if precision == "F" else ">c16"
-    arr = u.detach().cpu().numpy() if hasattr(u, "detach") else np.asarray(u)
+    arr = host_array(u)
     if arr.shape != lat.gauge_shape():
         raise ValueError(f"gauge shape {arr.shape} != {lat.gauge_shape()}")
     # (nd, nc, nc, *dims) -> per site (nd, nc, nc), mu fastest object

@@ -8,8 +8,8 @@ It accepts the JSON schema of the reference's example decks: ``hmc``
 ``rooted-staggered-fermions``, ``staggered-pauli-villars`` and
 ``staggered-boson`` with per-field steps and integrators, ``solver``,
 and ``flow`` measurement configs, which it passes on in ``meta``.  A
-deck with an ``mpi-geometry`` asks for a multi-device run, which is not
-ported yet.
+deck's ``mpi-geometry`` splits the lattice over the ranks of the default
+process group (``parallel.mesh``); the run then needs that many ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import json
 from ..gauge import action as ga
 from ..gauge.smear import HypCoefs, StoutCoefs
 from ..lattice import Lattice
+from ..parallel.mesh import make_lattice_mesh
 from ..solvers.base import SolverParams
 from .theory import FermionSpec, GaugeActionSpec, LatticeFieldTheory
 
@@ -53,7 +54,10 @@ def theory_from_json(src: str | dict
     """(lattice, theory, meta) from a reference-format JSON deck (a path
     or a parsed dict).  ``meta`` carries what the app needs: ``tau``,
     ``serial_seed``, ``parallel_seed``, ``start``, ``flow`` and
-    ``mesh`` (always None: a deck with ``mpi-geometry`` raises)."""
+    ``mesh``: the ``parallel.mesh.LatticeMesh`` of the deck's
+    ``mpi-geometry`` over the default process group (which must hold
+    that many ranks), else None.  With a mesh the staggered and HISQ
+    solves run on its blocks (``SolverParams.mesh``)."""
     if isinstance(src, str):
         with open(src) as f:
             cfg = json.load(f)
@@ -61,10 +65,11 @@ def theory_from_json(src: str | dict
         cfg = dict(src)
 
     hmc = cfg.get("hmc", {})
-    if hmc.get("mpi-geometry"):
-        raise NotImplementedError(
-            "mpi-geometry: multi-GPU runs are not ported yet (ROADMAP A11)")
     lat = Lattice(tuple(hmc.get("lattice-geometry", [4, 4, 4, 4])))
+    lm = None
+    if hmc.get("mpi-geometry"):
+        lm = make_lattice_mesh(lat, rank_geom=[int(x) for x in
+                                               hmc["mpi-geometry"]])
     tau = float(hmc.get("trajectory-length", 1.0))
 
     act = cfg.get("action", {})
@@ -107,7 +112,7 @@ def theory_from_json(src: str | dict
     solver = cfg.get("solver", {})
     sp = SolverParams(r2req=float(solver.get("tolerance", 1e-12)),
                       maxits=int(solver.get("max-iterations", 2000)),
-                      restarts=int(solver.get("restarts", 3)))
+                      restarts=int(solver.get("restarts", 3)), mesh=lm)
     theory = LatticeFieldTheory(lat, gauge, fermions, smear=smear, bc=bc,
                                 solver_params=sp, tau=tau)
     meta = {
@@ -116,6 +121,6 @@ def theory_from_json(src: str | dict
         "parallel_seed": int(hmc.get("parallel-random-number-seed", 0)),
         "start": hmc.get("start", "cold"),
         "flow": cfg.get("flow", {}),
-        "mesh": None,
+        "mesh": lm,
     }
     return lat, theory, meta

@@ -44,7 +44,7 @@ from ..solvers.base import SolverParams, SolverStats
 from ..solvers.rational import RationalApprox, rational_approx
 from . import stag_fast as sf
 from . import stag_hisq as sh
-from . import stag_solve, staggered as st
+from . import stag_shard, stag_solve, staggered as st
 
 
 def _a_apply(lat: Lattice, bc: str, u: torch.Tensor, x_e: torch.Tensor,
@@ -359,26 +359,31 @@ class HisqFermion:
         """A3(m)^{-1} b_e on (fat, long) links: restarted CG in the fast
         layout through :func:`_fast3_ops` (or, with ``sp.sloppy``, bf16
         inner iterations with float32 true-residual restarts and the
-        inner tolerance held at the bf16 noise floor 1e-5)."""
-        sp.check_supported()
+        inner tolerance held at the bf16 noise floor 1e-5); on this
+        rank's blocks of ``sp.mesh`` where ``stag_shard.mesh_usable``
+        accepts it (``stag_shard.solve_route``)."""
         s3 = st.new_stag3_eo(self.lat, *links)
         if self.lat.nd != 4:
             return cg.cg_solve_restarted(
                 partial(st.d2ee3, s3, m=m), b_e, r2req=sp.r2req,
                 maxits=sp.maxits, restarts=sp.restarts)
         f3 = sf.new_fast3(s3)
+
+        def whole_ops():
+            if sp.sloppy:
+                ee, _, ee_b = _fast3_ops_sloppy(f3)
+                return partial(ee, m=m), partial(ee_b, m=m)
+            return partial(_fast3_ops(f3)[0], m=m), None
+
+        b, op, op_sloppy, dots, back = stag_shard.solve_route(
+            sp.mesh, f3, sf.to_fast(b_e, self.lat), sp.sloppy, m, whole_ops)
         op_true, floor = None, 1e-12
-        if sp.sloppy:
-            ee, _, ee_b = _fast3_ops_sloppy(f3)
-            op, op_true, floor = partial(ee_b, m=m), partial(ee, m=m), 1e-5
-        else:
-            ee, _ = _fast3_ops(f3)
-            op = partial(ee, m=m)
+        if op_sloppy is not None:
+            op, op_true, floor = op_sloppy, op, 1e-5
         xf, stats = cg.cg_solve_restarted(
-            op, sf.to_fast(b_e, self.lat), r2req=sp.r2req,
-            maxits=sp.maxits, restarts=sp.restarts, op_true=op_true,
-            inner_r2req_floor=floor)
-        return sf.from_fast(xf, self.lat), stats
+            op, b, r2req=sp.r2req, maxits=sp.maxits, restarts=sp.restarts,
+            op_true=op_true, inner_r2req_floor=floor, dots=dots)
+        return sf.from_fast(back(xf), self.lat), stats
 
     def solve_ee(self, u: torch.Tensor, b_e: torch.Tensor,
                  sp: SolverParams | None = None, m: float | None = None,
@@ -425,7 +430,6 @@ class HisqFermion:
         """Multi-mass even-site solve (BASELINE config 5): one multishift
         Krylov space over the fat + naik operator, the shifts m^2 on the
         mass-free base ``d2dd3`` (kernel B2 on the card)."""
-        self.params.check_supported()
         links = self._links(u) if links is None else links
         s3 = st.new_stag3_eo(self.lat, *links)
         shifts = [m * m for m in masses]
@@ -433,10 +437,12 @@ class HisqFermion:
         if self.lat.nd != 4:
             return cgm.cg_multishift(partial(st.d2dd3, s3, parity=0), b_e,
                                      shifts, **kw)
-        _, dd = _fast3_ops(sf.new_fast3(s3))
-        xs, stats = cgm.cg_multishift(dd, sf.to_fast(b_e, self.lat), shifts,
-                                      **kw)
-        return [sf.from_fast(x, self.lat) for x in xs], stats
+        f3 = sf.new_fast3(s3)
+        b, dd, _, dots, back = stag_shard.solve_route(
+            self.params.mesh, f3, sf.to_fast(b_e, self.lat), False, None,
+            lambda: (_fast3_ops(f3)[1], None))
+        xs, stats = cgm.cg_multishift(dd, b, shifts, dots=dots, **kw)
+        return [sf.from_fast(back(x), self.lat) for x in xs], stats
 
 
 # --- Hasenbusch ratios -------------------------------------------------------
@@ -677,7 +683,6 @@ class StagRootedFermion:
                     sp: SolverParams) -> tuple[list[torch.Tensor],
                                                SolverStats]:
         """(A + s_i)^{-1} phi for every shift, one multishift CG."""
-        sp.check_supported()
         op, b, back = self._shifted_op(u, phi)
         xs, stats = cgm.cg_multishift(op, b, list(shifts), r2req=sp.r2req,
                                       maxits=sp.maxits)
@@ -687,7 +692,6 @@ class StagRootedFermion:
     def heatbath_from_noise(self, xi: torch.Tensor, u: torch.Tensor
                             ) -> torch.Tensor:
         """phi = A^{+nf/8} xi_e."""
-        self.params.check_supported()
         xi_e, _ = eo.pack(xi, self.lat.nd)
         op, b, back = self._shifted_op(u, xi_e)
         phi, _ = self._approx(self.nf, 8).apply(

@@ -19,6 +19,7 @@ from ..solvers import cg, cgm
 from ..solvers.base import SolverParams, SolverStats
 from . import stag_fast as sf
 from . import stag_hisq as sh
+from . import stag_shard
 from . import staggered as st
 
 
@@ -37,20 +38,27 @@ def solve_ee(s: st.StaggeredEO, b_e: torch.Tensor, m: float,
     floor 1e-5, and the true-residual restarts on the 8-term operator
     with links in the vector's precision (float32 on the card, kernel
     B1).  A CPU tensor takes the same route through the plain twins.
+
+    ``params.mesh`` runs the CG on this rank's blocks of the mesh
+    (``stag_shard.solve_route``: the same kernels on each block, halos
+    exchanged, sums all-reduced) and returns the whole solution.
     """
-    params.check_supported()
     if s.lat.nd == 4:
         bf = sf.to_fast(b_e, s.lat)
-        op, op_sloppy = fast_ops(sf.new_fast(s), bf, params.sloppy, m=m)
+        fs = sf.new_fast(s)
+        b, op, op_sloppy, dots, back = stag_shard.solve_route(
+            params.mesh, fs, bf, params.sloppy, m,
+            lambda: fast_ops(fs, bf, params.sloppy, m=m))
         op_true, floor = None, 1e-12
         if op_sloppy is not None:
             op, op_true, floor = op_sloppy, op, 1e-5
-        xf, stats = cg.cg_solve_restarted(op, bf, r2req=params.r2req,
+        xf, stats = cg.cg_solve_restarted(op, b, r2req=params.r2req,
                                           maxits=params.maxits,
                                           restarts=params.restarts,
                                           op_true=op_true,
-                                          inner_r2req_floor=floor)
-        return sf.from_fast(xf, s.lat), stats
+                                          inner_r2req_floor=floor,
+                                          dots=dots)
+        return sf.from_fast(back(xf), s.lat), stats
     op = partial(st.d2ee, s, m=m)
     return cg.cg_solve_restarted(op, b_e, r2req=params.r2req,
                                  maxits=params.maxits,
@@ -128,30 +136,31 @@ def solve_multi(s: st.StaggeredEO, b_e: torch.Tensor, masses,
     shift's true residual stalls near 1e-8, so below that r2req (1e-22
     in complex128), with restarts allowed, the plain route refines each
     shift on the true operator.  ``stats.r2`` is the worst shift's
-    relative residual (true on the refined routes, iterated else)."""
-    params.check_supported()
+    relative residual (true on the refined routes, iterated else).
+    ``params.mesh`` runs it on blocks, as :func:`solve_ee`."""
     shifts = [m * m for m in masses]
     if s.lat.nd != 4:
         return cgm.cg_multishift(partial(st.d2dd, s, parity=0), b_e, shifts,
                                  r2req=params.r2req, maxits=params.maxits)
     bf = sf.to_fast(b_e, s.lat)
-    base, base_sloppy = fast_ops(
-        sf.new_fast(s), bf,
-        params.sloppy and min(shifts) >= SLOPPY_MULTI_MIN_SHIFT)
+    fs = sf.new_fast(s)
+    sloppy = params.sloppy and min(shifts) >= SLOPPY_MULTI_MIN_SHIFT
+    b, base, base_sloppy, dots, back = stag_shard.solve_route(
+        params.mesh, fs, bf, sloppy, None, lambda: fast_ops(fs, bf, sloppy))
     floor = 1e-8 if bf.dtype == torch.complex64 else 1e-22
     if base_sloppy is not None:
         xs, stats = cgm.cg_multishift_refined(
-            base_sloppy, base, bf, shifts, r2req=params.r2req,
-            maxits=params.maxits, sloppy_r2req=1e-5)
+            base_sloppy, base, b, shifts, r2req=params.r2req,
+            maxits=params.maxits, sloppy_r2req=1e-5, dots=dots)
     elif params.r2req < floor and params.restarts > 0:
         xs, stats = cgm.cg_multishift_refined(
-            base, base, bf, shifts, r2req=params.r2req,
+            base, base, b, shifts, r2req=params.r2req,
             maxits=params.maxits, sloppy_r2req=floor,
-            refine_restarts=params.restarts)
+            refine_restarts=params.restarts, dots=dots)
     else:
-        xs, stats = cgm.cg_multishift(base, bf, shifts, r2req=params.r2req,
-                                      maxits=params.maxits)
-    return [sf.from_fast(x, s.lat) for x in xs], stats
+        xs, stats = cgm.cg_multishift(base, b, shifts, r2req=params.r2req,
+                                      maxits=params.maxits, dots=dots)
+    return [sf.from_fast(back(x), s.lat) for x in xs], stats
 
 
 def solve_batched(s: st.StaggeredEO, bs: torch.Tensor, m: float,

@@ -109,7 +109,6 @@ def solve(w: WilsonD, b: torch.Tensor,
     """Solve D x = b by CGNE: (D^dag D) x = D^dag b on the full lattice.
     ``params.backend == "mg"`` routes to the K-cycle-multigrid
     preconditioned GCR instead (:func:`solve_mg`)."""
-    params.check_supported()
     if params.backend == "mg":
         x, stats, _ = solve_mg(w, b, params)
         return x, stats
@@ -218,7 +217,6 @@ def solve_eo(w: WilsonEO, b: torch.Tensor,
     from . import stag_fast as sf
     from . import wilson_fast as wf
     from . import wilson_pallas as wp
-    params.check_supported()
     lat = w.lat
     if params.backend == "mg":
         g = eo.unpack(w.g_e, w.g_o, lat.nd)

@@ -8,6 +8,8 @@ from typing import Callable
 
 import torch
 
+from ..ops import linalg
+
 
 @dataclasses.dataclass(frozen=True)
 class MGParams:
@@ -37,8 +39,10 @@ class SolverParams:
     restarts: defect-correction restart cap.
     sloppy: bf16-link inner CG iterations with true-residual restarts
     on the full-precision operator (``stag_solve.solve_ee``).
-    mesh: the JAX package's sharded multi-chip kernel route; not ported
-    yet (ROADMAP A11), so setting it raises in the solve entry points.
+    mesh: a ``parallel.mesh.LatticeMesh``: the staggered and HISQ
+    even-site solves run domain-decomposed over its ranks
+    (``physics.stag_shard``) where ``stag_shard.mesh_usable`` accepts it,
+    and replicated on every rank elsewhere.
     backend: "cg" (CGNE / eo CG) or "mg" (K-cycle-multigrid-preconditioned
     GCR on the Wilson operator itself; ``physics.wilson.solve``/``solve_eo``
     dispatch on it), with ``mg`` its configuration (default MGParams()).
@@ -52,12 +56,6 @@ class SolverParams:
     backend: str = "cg"
     mg: MGParams | None = None
 
-    def check_supported(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "SolverParams.mesh: multi-GPU solves are not ported yet "
-                "(ROADMAP A11)")
-
 
 @dataclasses.dataclass
 class SolverStats:
@@ -68,3 +66,17 @@ class SolverStats:
 
 
 LinearOp = Callable[[torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Reductions:
+    """The global sums a Krylov solver takes: ``norm2(x, dtype=None)``
+    and ``redot(x, y, dtype=None)``.  The default sums one process's
+    tensors; a mesh's (``parallel.halo.reductions``) all-reduce float64
+    sums of each rank's block."""
+
+    norm2: Callable = linalg.norm2
+    redot: Callable = linalg.redot
+
+
+LOCAL = Reductions()

@@ -15,33 +15,34 @@ from typing import Callable
 import torch
 
 from ..ops import linalg
-from .base import SolverStats
+from .base import LOCAL, Reductions, SolverStats
 
 Op = Callable[[torch.Tensor], torch.Tensor]
 
 
 def cg_solve(op: Op, b: torch.Tensor, x0: torch.Tensor | None = None, *,
-             r2req: float = 1e-12, maxits: int = 1000
-             ) -> tuple[torch.Tensor, SolverStats]:
+             r2req: float = 1e-12, maxits: int = 1000,
+             dots: Reductions = LOCAL) -> tuple[torch.Tensor, SolverStats]:
     """Plain CG on a hermitian positive definite operator, from ``x0``
     (default 0); stops when |r|^2 / |b|^2 <= r2req or after maxits
-    iterations."""
-    b2 = linalg.norm2(b)
+    iterations.  ``dots`` takes the global sums (a mesh's for vectors
+    split over ranks)."""
+    b2 = dots.norm2(b)
     if x0 is None:
         x, r = torch.zeros_like(b), b
     else:
         x, r = x0, b - op(x0)
     p = r
-    r2 = linalg.norm2(r)
+    r2 = dots.norm2(r)
     stop = float(r2req * b2)
     r2_host = float(r2)
     k = 0
     while r2_host > stop and k < maxits:
         ap = op(p)
-        alpha = r2 / linalg.redot(p, ap)
+        alpha = r2 / dots.redot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
-        r2new = linalg.norm2(r)
+        r2new = dots.norm2(r)
         p = r + (r2new / r2) * p
         r2 = r2new
         r2_host = float(r2)
@@ -54,29 +55,31 @@ def cg_solve_restarted(op: Op, b: torch.Tensor, *, r2req: float = 1e-12,
                        inner_r2req_floor: float = 1e-12,
                        op_true: Op | None = None,
                        stop2: float | None = None,
+                       dots: Reductions = LOCAL,
                        ) -> tuple[torch.Tensor, SolverStats]:
     """Defect-correction restarted CG: run inner CG, recompute the TRUE
     residual r = b - op_true(x), and restart on the defect until the
     true relative residual meets r2req (at most ``restarts`` rounds).
 
     ``op_true`` (default ``op``) evaluates the true residuals; ``stop2``
-    is an absolute |r|^2 stop that overrides ``r2req * |b|^2``.
+    is an absolute |r|^2 stop that overrides ``r2req * |b|^2``; ``dots``
+    as in :func:`cg_solve`.
     """
     if op_true is None:
         op_true = op
-    b2 = float(linalg.norm2(b))
+    b2 = float(dots.norm2(b))
     stop = r2req * b2 if stop2 is None else float(stop2)
     x = torch.zeros_like(b)
     its = 0
     for _ in range(restarts):
         r = b - op_true(x)
-        if float(linalg.norm2(r)) <= stop:
+        if float(dots.norm2(r)) <= stop:
             break
         dx, st = cg_solve(op, r, r2req=max(r2req * 0.1, inner_r2req_floor),
-                          maxits=maxits)
+                          maxits=maxits, dots=dots)
         x = x + dx
         its += st.iterations
-    r2_final = float(linalg.norm2(b - op_true(x))) / b2
+    r2_final = float(dots.norm2(b - op_true(x))) / b2
     return x, SolverStats(iterations=its, r2=r2_final)
 
 

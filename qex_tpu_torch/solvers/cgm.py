@@ -22,19 +22,19 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..ops import linalg
-from .base import SolverStats
+from .base import LOCAL, Reductions, SolverStats
 
 
 def cg_multishift(base_op: Callable[[torch.Tensor], torch.Tensor],
                   b: torch.Tensor, shifts: Sequence[float], *,
-                  r2req: float = 1e-12, maxits: int = 2000
+                  r2req: float = 1e-12, maxits: int = 2000,
+                  dots: Reductions = LOCAL
                   ) -> tuple[list[torch.Tensor], SolverStats]:
     """Shifted CG: returns [x_i] with (A + sigma_i) x_i = b.
 
     Iterates until max_i |zeta_i r|^2 <= r2req |b|^2 or maxits; every
     shift must be >= 0 and A positive semi-definite (the staggered
-    normal operator)."""
+    normal operator); ``dots`` takes the global sums (``cg.cg_solve``)."""
     ns = len(shifts)
     f64 = torch.float64
     dev = b.device
@@ -50,13 +50,13 @@ def cg_multishift(base_op: Callable[[torch.Tensor], torch.Tensor],
     def scal(v):          # per-shift float64 scalars -> b's dtype
         return v.reshape(bshape).to(b.dtype)
 
-    b2 = float(linalg.norm2(b, dtype=f64))
+    b2 = float(dots.norm2(b, dtype=f64))
     stop = r2req * b2
     one = torch.ones(ns, dtype=f64, device=dev)
     x = torch.zeros((ns,) + b.shape, dtype=b.dtype, device=dev)
     ps = b.expand((ns,) + b.shape).clone()
     p, r = b, b
-    rho = linalg.norm2(r, dtype=f64)
+    rho = dots.norm2(r, dtype=f64)
     zeta, zeta_old = one, one
     a_old = torch.ones((), dtype=f64, device=dev)
     b_old = torch.zeros((), dtype=f64, device=dev)
@@ -64,7 +64,7 @@ def cg_multishift(base_op: Callable[[torch.Tensor], torch.Tensor],
     worst = float((zeta * zeta).max() * rho)
     while worst > stop and k < maxits:
         ap = op(p)
-        alpha = rho / linalg.redot(p, ap, dtype=f64)
+        alpha = rho / dots.redot(p, ap, dtype=f64)
         # shifted coefficient recurrences (Jegerlehner eqs. 2.42-2.44)
         denom = (alpha * b_old * (zeta_old - zeta)
                  + zeta_old * a_old * (one + dsig * alpha))
@@ -73,7 +73,7 @@ def cg_multishift(base_op: Callable[[torch.Tensor], torch.Tensor],
         ratio = torch.where(zeta != 0.0, zeta_new / zeta, 0.0)
         x = x + scal(alpha * ratio) * ps
         r = r - alpha.to(b.dtype) * ap
-        rho_new = linalg.norm2(r, dtype=f64)
+        rho_new = dots.norm2(r, dtype=f64)
         beta = rho_new / rho
         p = r + beta.to(b.dtype) * p
         ps = scal(zeta_new) * r + scal(beta * ratio * ratio) * ps
@@ -90,7 +90,8 @@ def cg_multishift_refined(base_sloppy: Callable[[torch.Tensor], torch.Tensor],
                           b: torch.Tensor, shifts: Sequence[float], *,
                           r2req: float = 1e-12, maxits: int = 2000,
                           sloppy_r2req: float = 1e-8,
-                          refine_restarts: int = 2
+                          refine_restarts: int = 2,
+                          dots: Reductions = LOCAL
                           ) -> tuple[list[torch.Tensor], SolverStats]:
     """Mixed-precision multishift: one joint pass on ``base_sloppy`` to
     max(r2req, sloppy_r2req), then per-shift defect correction against
@@ -107,18 +108,20 @@ def cg_multishift_refined(base_sloppy: Callable[[torch.Tensor], torch.Tensor],
     that made a shift's defect worse from poisoning the next: the joint
     pass's x_i is dropped if its defect exceeds |b|, and the sloppy
     correction if it grew the defect.  ``r2`` is the worst shift's true
-    relative residual on ``base_true``."""
+    relative residual on ``base_true``; ``dots`` as in
+    :func:`cg_multishift`."""
     from . import cg as cgmod
 
     xs, st0 = cg_multishift(base_sloppy, b, shifts,
-                            r2req=max(r2req, sloppy_r2req), maxits=maxits)
+                            r2req=max(r2req, sloppy_r2req), maxits=maxits,
+                            dots=dots)
     # the defect after the joint pass is ~sloppy_r2req |b|^2, so this
     # relative target lands the final residual at ~r2req |b|^2 with a
     # decade to spare
     r2_ref = min(1.0, 0.1 * r2req / max(r2req, sloppy_r2req))
     total = st0.iterations
     out, worst = [], 0.0
-    b2 = float(linalg.norm2(b))
+    b2 = float(dots.norm2(b))
     for i, s in enumerate(shifts):
         def op_t(v, s=s):
             return base_true(v) + s * v
@@ -127,11 +130,12 @@ def cg_multishift_refined(base_sloppy: Callable[[torch.Tensor], torch.Tensor],
             return base_sloppy(v) + s * v
 
         d = b - op_t(xs[i])
-        if float(linalg.norm2(d)) > b2:
+        if float(dots.norm2(d)) > b2:
             xs[i], d = torch.zeros_like(b), b
         e, sti = cgmod.cg_solve_restarted(
             op_s, d, r2req=r2_ref, maxits=maxits, restarts=refine_restarts,
-            op_true=op_t, inner_r2req_floor=max(r2_ref * 0.1, sloppy_r2req))
+            op_true=op_t, inner_r2req_floor=max(r2_ref * 0.1, sloppy_r2req),
+            dots=dots)
         xi = xs[i] + e
         total += sti.iterations
         if base_sloppy is not base_true:
@@ -139,13 +143,13 @@ def cg_multishift_refined(base_sloppy: Callable[[torch.Tensor], torch.Tensor],
             # while eps_sloppy * kappa(A + s) < 1; the true-operator
             # closure finishes the shifts where it stalled
             d2 = b - op_t(xi)
-            if float(linalg.norm2(d2)) > float(linalg.norm2(d)):
+            if float(dots.norm2(d2)) > float(dots.norm2(d)):
                 xi, d2 = xs[i], d
             e2, st2 = cgmod.cg_solve_restarted(
                 op_t, d2, r2req=r2_ref, maxits=maxits,
-                restarts=refine_restarts, stop2=r2req * b2)
+                restarts=refine_restarts, stop2=r2req * b2, dots=dots)
             xi = xi + e2
             total += st2.iterations
         out.append(xi)
-        worst = max(worst, float(linalg.norm2(b - op_t(xi))) / b2)
+        worst = max(worst, float(dots.norm2(b - op_t(xi))) / b2)
     return out, SolverStats(iterations=total, r2=worst)

@@ -20,6 +20,18 @@ def compile_ref(fn, *args):
         {"xla_backend_optimization_level": 0})
 
 
+def compile_refs(*jobs):
+    """:func:`compile_ref` of each ``(fn, *args)`` job, all at once in
+    threads (``args`` may be ``jax.ShapeDtypeStruct``s): XLA compiles
+    with the GIL released, so the independent reference programs of one
+    fixture compile side by side.  The programs and their results are
+    those of one compile_ref each."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        futures = [ex.submit(compile_ref, fn, *args) for fn, *args in jobs]
+        return [f.result() for f in futures]
+
+
 def random_links(rng, lat, scale=0.7):
     """expm(scale * tah(G)) per link from numpy Ginibre noise G, built
     with the JAX reference's own tah/expm (complex128)."""

@@ -151,11 +151,24 @@ def test_app_runs_on_the_cpu_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-rank_geom=1,1,1,2"], "A11"), (["--profile"], "split-step"),
+    pytest.param(["-rank_geom=1,1,1,2"], "torchrun", id="argv0-A11"),
+    pytest.param(["--profile"], "PROFILE", id="argv1-split-step"),
 ])
-def test_unported_app_options_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        app.main(["--xml", DECK, "--cpu", "--ntraj", "0", *SMALL, *argv])
+def test_unported_app_options_raise(argv, item, capsys):
+    """The options the app once refused: a rank geometry of two ranks
+    in one process names torchrun (the two-rank run is in
+    tests/test_torch_parallel.py); ``--profile`` prints the timer tree
+    of each trajectory."""
+    if argv[0].startswith("-rank_geom"):
+        with pytest.raises(ValueError, match=item):
+            app.main(["--xml", DECK, "--cpu", "--ntraj", "0", *SMALL,
+                      *argv])
+        return
+    assert app.main(["--xml", DECK, "--cpu", "--ntraj", "1", *SMALL,
+                     *argv]) == 0
+    out = capsys.readouterr().out
+    assert "PROFILE trajectory phase tree:" in out
+    assert "smear_forward" in out and "solve_ee" in out
 
 
 def test_app_needs_a_card_or_cpu_flag(capsys):

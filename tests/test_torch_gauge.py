@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, ginibre, n, rel, t
+from _torch_helpers import compile_refs, ginibre, n, rel, t
 from qex_tpu.gauge import action as jga
 from qex_tpu.gauge import flow as jgf
 from qex_tpu.gauge import loops as jloops
@@ -89,16 +89,25 @@ def refs():
     w = ginibre(rng, (3,) + DIMS)
     keys = {k: jax.random.PRNGKey(k) for k in SAMPLE}
 
-    def program(u, u3, uq, near, v, w, keys):
+    # the reference programs, compiled side by side
+    def algebra_and_actions(u, near, v, w):
         out = {"outer": jlinalg.outer(v, w),
                "sqrtm": jlinalg.sqrtm_db(near, iters=LOGM["db_iters"]),
                "logm": jlinalg.logm(near, **LOGM)}
         for k, c in COEFFS.items():
             out[f"S_{k}"] = jga.full_action(c, JLAT, u)
+        return out
+
+    def forces(u, u3):
+        out = {}
         for k, nd in FORCES.items():
             lat, x = (JLAT, u) if nd == 4 else (JLAT3, u3)
             out[f"F_{k}"] = jga.gauge_force(COEFFS[k], lat, x)
             out[f"G_{k}"] = jga.gauge_grad(COEFFS[k], lat, x)
+        return out
+
+    def lines_and_flow(u, uq):
+        out = {}
         eng = jwl.PathEngine(JLAT, u)
         for i, p in enumerate(PATHS):
             out[f"line_{i}"] = jloops.wilson_line(JLAT, u, list(p), eng)
@@ -112,6 +121,10 @@ def refs():
         c = jgf.wilson_flow_coeffs(3)
         out["flow_step"] = jgf.flow_step(c, JLAT, u, 0.02)
         out["flow_u"], out["flow_m"] = jgf.flow(c, JLAT, u, 0.02, 3)
+        return out
+
+    def samplers(keys):
+        out = {}
         for k, key in keys.items():
             kr, ki = jax.random.split(key)
             shape = (k, k) + SAMPLE[k]
@@ -125,9 +138,12 @@ def refs():
             out[f"check_{k}"] = jgroup.check_su(out[f"su_{k}"])
         return out
 
-    args = (u, u3, uq, near, v, w, keys)
-    ref = jax.tree_util.tree_map(np.asarray,
-                                 compile_ref(program, *args)(*args))
+    progs = compile_refs((algebra_and_actions, u, near, v, w),
+                         (forces, u, u3), (lines_and_flow, u, uq),
+                         (samplers, keys))
+    ref = jax.tree_util.tree_map(np.asarray, {
+        **progs[0](u, near, v, w), **progs[1](u, u3), **progs[2](u, uq),
+        **progs[3](keys)})
     return dict(u=u, u3=u3, uq=uq, near=near, v=v, w=w, ref=ref)
 
 

@@ -189,10 +189,17 @@ def test_theory_from_json_reads_files_and_refuses_a_mesh(tmp_path):
     path.write_text(json.dumps(CONFIG_DECK))
     assert [x.name for x in builder.theory_from_json(str(path))[1].terms] \
         == [x.name for x in jbuilder.theory_from_json(str(path))[1].terms]
-    # tests/test_config.py::test_json_builder_mpi_geometry's deck
-    with pytest.raises(NotImplementedError, match="A11"):
+    # tests/test_config.py::test_json_builder_mpi_geometry's deck asks
+    # for eight ranks, which one process cannot hold
+    with pytest.raises(ValueError, match="8 ranks|over 1 ranks"):
         builder.theory_from_json({"hmc": {"lattice-geometry": [4, 4, 4, 8],
                                           "mpi-geometry": [1, 1, 2, 4]}})
+    # a one-rank geometry builds a mesh and routes the solves through it
+    _, th, meta = builder.theory_from_json(
+        {"hmc": {"lattice-geometry": [4, 4, 4, 8],
+                 "mpi-geometry": [1, 1, 1, 1]}})
+    assert meta["mesh"].rank_geom == (1, 1, 1, 1)
+    assert th.solver_params.mesh is meta["mesh"]
 
 
 # --- the mcmc_hmc app --------------------------------------------------------------

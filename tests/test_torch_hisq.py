@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
-                            rel2, t)
+from _torch_helpers import (compile_ref, compile_refs, ginibre, n,
+                            random_links, rel, rel2, t)
 from qex_tpu.gauge import action as jga
 from qex_tpu.hmc import hmc as jhmc
 from qex_tpu.lattice import Lattice as JLattice
@@ -265,21 +265,6 @@ def hisq_refs():
         return p, [jsh.gaussian_eta(k, jlat, dt) if term.heatbath else None
                    for term, k in zip(jth.terms, keys)]
 
-    p, xis = compile_ref(draws, kp, kf)(kp, kf)
-
-    phis = compile_ref(jth.heatbath, kf, u)(kf, u)
-    terms = [dataclasses.replace(term, force=compile_ref(term.force, u, phi))
-             for term, phi in zip(jth.terms, phis)]
-    update = compile_ref(jhmc.gauge_update_u, u, p, 0.1)
-    hamiltonian = compile_ref(jth.hamiltonian, u, p, phis)
-    h_old = float(hamiltonian(u, p, phis))
-    # the HISQ action at (u, phi): H less the kinetic and gauge terms
-    rest = compile_ref(lambda u, p: jhmc.kinetic_energy(p) + jga.full_action(
-        args["gauge"].coeffs, jlat, u), u, p)
-    act = h_old - float(rest(u, p))
-    u1, p1 = jmd.run_trajectory(terms, u, p, phis, jth.tau, update)
-    h_new = float(hamiltonian(u1, p1, phis))
-
     ferm = jsh.HisqFermion(jlat, 0.4, "pppa", params=args["solver_params"])
     masses = (0.1, 0.4)
     b = ginibre(np.random.default_rng(59), (3, 4, 4, 4, 2))
@@ -288,21 +273,47 @@ def hisq_refs():
         xs, stats = ferm.solve_multi(u, b, masses)
         return xs, stats.iterations
 
-    xs, its = compile_ref(multi, u, b)(u, b)
-
     # the HISQ Hasenbusch ratio over the fermion's mass: heatbath from a
     # key (its noise returned for the port), action and force there
     hasen = jsh.HisqHasenbusch(jlat, 0.4, HMASS, "pppa",
                                params=args["solver_params"])
 
-    def ratio(kh, u):
-        phi = hasen.heatbath(kh, u)
-        s_act = hasen.make_action_fn()
-        return (jsh.gaussian_eta(kh, jlat, dt), phi, s_act(u, phi),
-                jsh.fermion_force(s_act, u, phi))
+    def ratio_heatbath(kh, u):
+        return jsh.gaussian_eta(kh, jlat, dt), hasen.heatbath(kh, u)
+
+    def ratio_action(u, phi):
+        return hasen.make_action_fn()(u, phi)
+
+    def ratio_force(u, phi):
+        return jsh.fermion_force(hasen.make_action_fn(), u, phi)
+
+    def rest_fn(u, p):
+        return jhmc.kinetic_energy(p) + jga.full_action(args["gauge"].coeffs,
+                                                        jlat, u)
 
     kh = jax.random.PRNGKey(23)
-    hasenbusch = compile_ref(ratio, kh, u)(kh, u)
+    # every program compiled at once, on the shapes of its arguments
+    p_s, _ = jax.eval_shape(draws, kp, kf)
+    phis_s = jax.eval_shape(jth.heatbath, kf, u)
+    (draws_c, heat_c, update, hamiltonian, rest, multi_c, ratio_hb,
+     ratio_act, ratio_frc, *forces) = compile_refs(
+        (draws, kp, kf), (jth.heatbath, kf, u),
+        (jhmc.gauge_update_u, u, p_s, 0.1), (jth.hamiltonian, u, p_s, phis_s),
+        (rest_fn, u, p_s), (multi, u, b), (ratio_heatbath, kh, u),
+        (ratio_action, u, phis_s[1]), (ratio_force, u, phis_s[1]),
+        *[(term.force, u, phi) for term, phi in zip(jth.terms, phis_s)])
+    p, xis = draws_c(kp, kf)
+    phis = heat_c(kf, u)
+    terms = [dataclasses.replace(term, force=f)
+             for term, f in zip(jth.terms, forces)]
+    h_old = float(hamiltonian(u, p, phis))
+    # the HISQ action at (u, phi): H less the kinetic and gauge terms
+    act = h_old - float(rest(u, p))
+    u1, p1 = jmd.run_trajectory(terms, u, p, phis, jth.tau, update)
+    h_new = float(hamiltonian(u1, p1, phis))
+    xs, its = multi_c(u, b)
+    eta_h, phi_h = ratio_hb(kh, u)
+    hasenbusch = (eta_h, phi_h, ratio_act(u, phi_h), ratio_frc(u, phi_h))
     return dict(args=args, u=np.asarray(u), p=np.asarray(p),
                 xis=[None if x is None else np.asarray(x) for x in xis],
                 phis=[None if f is None else np.asarray(f) for f in phis],

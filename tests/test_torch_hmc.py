@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, n, random_links, rel, t
+from _torch_helpers import compile_refs, n, random_links, rel, t
 from qex_tpu.gauge import action as jga
 from qex_tpu.gauge import loops as jloops
 from qex_tpu.hmc import hmc as jhmc
@@ -67,15 +67,20 @@ def slice_refs():
         return p, [jsh.gaussian_eta(k, jlat, DT) if term.heatbath
                    else None for term, k in zip(jth.terms, keys)]
 
-    p, xis = compile_ref(draws, kp, kf)(kp, kf)
-    xis = [None if x is None else np.asarray(x) for x in xis]
-    phis = compile_ref(jth.heatbath, kf, u)(kf, u)
+    # every program compiled at once, on the shapes of its arguments;
     # md.run_trajectory runs eagerly over per-term compiled forces, so
     # each force's CG while_loop compiles once, not once per kick
-    terms = [dataclasses.replace(term, force=compile_ref(term.force, u, phi))
-             for term, phi in zip(jth.terms, phis)]
-    update = compile_ref(jhmc.gauge_update_u, u, p, 0.1)
-    hamiltonian = compile_ref(jth.hamiltonian, u, p, phis)
+    p_s, _ = jax.eval_shape(draws, kp, kf)
+    phis_s = jax.eval_shape(jth.heatbath, kf, u)
+    draws_c, heat_c, update, hamiltonian, *forces = compile_refs(
+        (draws, kp, kf), (jth.heatbath, kf, u),
+        (jhmc.gauge_update_u, u, p_s, 0.1), (jth.hamiltonian, u, p_s, phis_s),
+        *[(term.force, u, phi) for term, phi in zip(jth.terms, phis_s)])
+    p, xis = draws_c(kp, kf)
+    xis = [None if x is None else np.asarray(x) for x in xis]
+    phis = heat_c(kf, u)
+    terms = [dataclasses.replace(term, force=f)
+             for term, f in zip(jth.terms, forces)]
     h_old = float(hamiltonian(u, p, phis))
     u1, p1 = jmd.run_trajectory(terms, u, p, phis, jth.tau, update)
     h_new = hamiltonian(u1, p1, phis)
@@ -256,9 +261,6 @@ def smeared_refs():
         return p, [jsh.gaussian_eta(k, jlat, DT) if term.heatbath
                    else None for term, k in zip(jth.terms, keys)]
 
-    p, xis = compile_ref(draws, kp, kf)(kp, kf)
-    phis = compile_ref(jth.heatbath, kf, u)(kf, u)
-    hamiltonian = compile_ref(jth.hamiltonian, u, p, phis)
     smeared = [i for i, term in enumerate(jth.terms) if term.smeared]
 
     def kick(u, p, phis, cdts):
@@ -268,9 +270,15 @@ def smeared_refs():
             u, p, phis)
 
     cdts0 = jnp.ones(len(smeared))
-    kick = compile_ref(kick, u, p, phis, cdts0)
-    force0 = compile_ref(jth.terms[0].force, u, None)
-    update = compile_ref(jhmc.gauge_update_u, u, p, 0.1)
+    # every program compiled at once, on the shapes of its arguments
+    p_s, _ = jax.eval_shape(draws, kp, kf)
+    phis_s = jax.eval_shape(jth.heatbath, kf, u)
+    draws_c, heat_c, hamiltonian, kick, force0, update = compile_refs(
+        (draws, kp, kf), (jth.heatbath, kf, u),
+        (jth.hamiltonian, u, p_s, phis_s), (kick, u, p_s, phis_s, cdts0),
+        (jth.terms[0].force, u, None), (jhmc.gauge_update_u, u, p_s, 0.1))
+    p, xis = draws_c(kp, kf)
+    phis = heat_c(kf, u)
     uu, pp = u, p
     for dt, kicks in jmd.build_schedule(jth.terms, jth.tau):
         if dt > 1e-9:

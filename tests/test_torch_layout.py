@@ -107,7 +107,16 @@ def test_package_imports_no_jax():
             "qex_tpu_torch.utils.numdiff", "qex_tpu_torch.utils.spline",
             "qex_tpu_torch.apps.xy_mc", "qex_tpu_torch.apps.u1_mc",
             "qex_tpu_torch.apps.u1_qn_hmc", "qex_tpu_torch.apps.nambu_hmc",
-            "qex_tpu_torch.apps.rahmc"} <= set(mods)
+            "qex_tpu_torch.apps.rahmc", "qex_tpu_torch.io.milc",
+            "qex_tpu_torch.io.modfile", "qex_tpu_torch.io.timeslice",
+            "qex_tpu_torch.io.native", "qex_tpu_torch.io.pario",
+            "qex_tpu_torch.apps.lat_util", "qex_tpu_torch.utils.profile",
+            "qex_tpu_torch.parallel.mesh", "qex_tpu_torch.parallel.halo",
+            "qex_tpu_torch.parallel.distributed",
+            "qex_tpu_torch.parallel.dryrun",
+            "qex_tpu_torch.physics.stag_shard", "qex_tpu_torch.bench.suite",
+            "qex_tpu_torch.examples.ex0", "qex_tpu_torch.examples.ex1",
+            "qex_tpu_torch.examples.harmonic"} <= set(mods)
     code = ("import sys, importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules "

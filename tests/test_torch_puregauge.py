@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, ginibre, n, rel, t
+from _torch_helpers import compile_refs, ginibre, n, rel, t
 from qex_tpu.apps import gauge_flow as jflow_app
 from qex_tpu.apps import staghmc_spv as japp
 from qex_tpu.gauge import action as jga
@@ -117,23 +117,32 @@ def refs():
     jmatter = JTheory(**matter_theory_args())
     upd = jhmc.gauge_update_u
 
-    def program(u, p, phi):
-        act, frc = jfns(jga.wilson(BETA))
+    # the reference programs, compiled side by side
+    def integrators(u, p):
+        _, frc = jfns(jga.wilson(BETA))
+        return {f"int_{s}": jint.integrate(jint.get_integrator(s), u, p, TAU,
+                                           ns, frc, upd)
+                for s, ns in SCHEMES.items()}
+
+    def fg_gauge(u):
+        _, frc = jfns(jga.wilson(BETA))
         _, frc_sym = jfns(jga.symanzik(BETA))
-        out = {f"int_{s}": jint.integrate(jint.get_integrator(s), u, p, TAU,
-                                          ns, frc, upd)
-               for s, ns in SCHEMES.items()}
-        out["fg_exact"] = jint.fg_force(u, FG_A, frc_sym, upd)
-        out["fg_shifted"] = frc(upd(u, frc(u), -FG_A))
-        for term in jmatter.terms[1:]:
-            out[f"fg_{term.name}"] = jint.fg_force(
-                u, FG_A, lambda w, term=term: term.force(w, phi), upd)
-        out["reverse"] = jhmc.check_reverse(
-            u, p, act, frc, jint.get_integrator("LF"), TAU, 1)
-        out["smeared_traj"] = jmd.run_trajectory(
-            jth.terms, u, p, [None, None], TAU, upd, transform=jth._smear)
-        out["smeared_h"] = jth.hamiltonian(u, p, [None, None])
-        return out
+        return {"fg_exact": jint.fg_force(u, FG_A, frc_sym, upd),
+                "fg_shifted": frc(upd(u, frc(u), -FG_A))}
+
+    def fg_matter(u, phi):
+        return {f"fg_{term.name}": jint.fg_force(
+            u, FG_A, lambda w, term=term: term.force(w, phi), upd)
+            for term in jmatter.terms[1:]}
+
+    def reverse_and_smeared(u, p):
+        act, frc = jfns(jga.wilson(BETA))
+        return {"reverse": jhmc.check_reverse(
+                    u, p, act, frc, jint.get_integrator("LF"), TAU, 1),
+                "smeared_traj": jmd.run_trajectory(
+                    jth.terms, u, p, [None, None], TAU, upd,
+                    transform=jth._smear),
+                "smeared_h": jth.hamiltonian(u, p, [None, None])}
 
     def step(key, u):
         act, frc = jfns(jga.wilson(BETA))
@@ -145,11 +154,13 @@ def refs():
         return pp, r, jhmc.hmc_step(key, u, act, frc,
                                     jint.get_integrator("LF"), HMC_TAU, 1)
 
-    ref = jax.tree_util.tree_map(np.asarray,
-                                 compile_ref(program, u, p, phi)(u, p, phi))
-    hmc_u = {k: links(g, sc) for k, (_, sc) in HMC_CASES.items()}
     key0 = jax.random.PRNGKey(0)
-    stepc = compile_ref(step, key0, u)
+    ints, fgg, fgm, rs, stepc = compile_refs(
+        (integrators, u, p), (fg_gauge, u), (fg_matter, u, phi),
+        (reverse_and_smeared, u, p), (step, key0, u))
+    ref = jax.tree_util.tree_map(np.asarray, {
+        **ints(u, p), **fgg(u), **fgm(u, phi), **rs(u, p)})
+    hmc_u = {k: links(g, sc) for k, (_, sc) in HMC_CASES.items()}
     for k, (kk, _) in HMC_CASES.items():
         ref[f"hmc_{k}"] = jax.tree_util.tree_map(
             np.asarray, stepc(jax.random.PRNGKey(kk), hmc_u[k]))

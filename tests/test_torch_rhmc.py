@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, ginibre, n, random_links, rel, t
+from _torch_helpers import compile_refs, ginibre, n, random_links, rel, t
 from qex_tpu.hmc import hmc as jhmc
 from qex_tpu.hmc import integrators as jint
 from qex_tpu.lattice import Lattice as JLattice
@@ -84,7 +84,9 @@ def refs():
     key = jax.random.PRNGKey(5)
     phi = ginibre(rng, be.shape)
 
-    def program(d, u, be, bs, key, phi, a_fg):
+    ra = jrational.rational_approx(-1, 2, 0.04, 3.1, 12)
+
+    def dense_program(d):
         out = {}
         a, b = d["a"], d["b"]
         op = partial(jnp.matmul, a)
@@ -94,8 +96,11 @@ def refs():
         out["refined"] = jcgm.cg_multishift_refined(
             partial(jnp.matmul, d["a_sloppy"]), op, b, SHIFTS, r2req=1e-24,
             maxits=500, sloppy_r2req=1e-12)
-        ra = jrational.rational_approx(-1, 2, 0.04, 3.1, 12)
         out["apply"] = ra.apply(op, b, r2req=1e-26, maxits=500)
+        return out
+
+    def solve_program(u, be, bs):
+        out = {}
         s = jst.new_stag_eo(jlat, u)
         for route in ("plain", "refined"):
             out[f"multi_{route}"] = jsolve.solve_multi(
@@ -111,6 +116,10 @@ def refs():
         out["multi_sloppy"] = ([jsf.from_fast(x, jlat) for x in xs], stats)
         out["batched"] = jsolve.solve_batched(
             s, bs, 0.1, JSolverParams(r2req=1e-20, maxits=1000, restarts=3))
+        return out
+
+    def rooted_program(u, key, phi, a_fg):
+        out = {}
         ferm = _jrooted(jlat)
         s_act = ferm.make_action_fn()
 
@@ -123,11 +132,15 @@ def refs():
         out["fg"] = jint.fg_force(u, a_fg, force, jhmc.gauge_update_u)
         return out
 
-    args = (dense, u, be, bs, key, phi)
-    prog = compile_ref(program, *args, FG_A)
-    out = jax.tree_util.tree_map(np.asarray, prog(*args, FG_A))
+    # the three programs compiled at once
+    dense_c, solve_c, rooted_c = compile_refs(
+        (dense_program, dense), (solve_program, u, be, bs),
+        (rooted_program, u, key, phi, FG_A))
+    out = jax.tree_util.tree_map(np.asarray, {
+        **dense_c(dense), **solve_c(u, be, bs),
+        **rooted_c(u, key, phi, FG_A)})
     # fg_force at a = 0 is the force itself
-    out["force"] = np.asarray(prog(*args, 0.0)["fg"])
+    out["force"] = np.asarray(rooted_c(u, key, phi, 0.0)["fg"])
     return dict(dense=dense, u=u, b=b, bs=bs, be=be, phi=phi, out=out)
 
 

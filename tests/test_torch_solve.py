@@ -94,12 +94,25 @@ def test_cg_flops_model():
 
 @pytest.mark.parametrize("field", ["sloppy", "mesh"])
 def test_unported_solver_routes_raise(problem, field):
-    """Multi-GPU solves, plain or sloppy, are not ported (ROADMAP A11)."""
+    """The mesh route, plain or sloppy, once refused: on a one-rank mesh
+    (no process group) it runs the solve on the mesh's one block and
+    gives the unmeshed solve's iterations and solution (the multi-rank
+    solves are in tests/test_torch_parallel.py)."""
+    from qex_tpu_torch.parallel.mesh import make_lattice_mesh
     u, b, _, _, _ = problem
-    s = st.new_stag_eo(Lattice(DIMS), t(u))
-    params = SolverParams(mesh=object(), sloppy=field == "sloppy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stag_solve.solve(s, t(b), M, params)
+    lat = Lattice(DIMS)
+    s = st.new_stag_eo(lat, t(u))
+    sloppy = field == "sloppy"
+    # the sloppy route's bf16 inner iterations end near 1e-12
+    r2req, tol = (1e-10, 1e-4) if sloppy else (1e-20, 1e-9)
+    sp = dict(r2req=r2req, maxits=1000, restarts=5, sloppy=sloppy)
+    x0, s0 = stag_solve.solve(s, t(b), M, SolverParams(**sp))
+    x1, s1 = stag_solve.solve(s, t(b), M, SolverParams(
+        mesh=make_lattice_mesh(lat, (1, 1, 1, 1)), **sp))
+    # the block route sums in another order; both reach r2req
+    assert abs(s1.iterations - s0.iterations) <= 2
+    assert s1.r2 <= r2req and s0.r2 <= r2req
+    assert rel(n(x1), n(x0)) < tol
 
 
 DIMS8 = (8, 4, 4, 8)
