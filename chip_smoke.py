@@ -182,19 +182,38 @@ Phases, each printed as one JSON line:
      config 5's HISQ links (expm(HISQ_START tah)) at 32^3x64, split
      (1,1,2,1) and (1,1,1,2) over two ranks each pair at once, then
      (1,1,2,2) over four: each sharded d2ee and d2dd against the
-     unsharded kernel operator on the card and each rank's local hop
-     against its plain twin on its block (TOL_KERNEL); then, counted,
+     unsharded kernel operator on the card (the links built by each
+     rank from its block of the fast links, the backward links' shifts
+     exchanging faces) and each rank's local hop against its plain
+     twin on its block (TOL_KERNEL), and B3/B3b on
+     blocks at 24^3x32 over (1,1,2,2), links built by each rank from its
+     block of the gauge field, both parities, plain and fused, against
+     the unsplit kernel (TOL_KERNEL); then, counted,
      solve_ee_sharded at 24^4 over (1,1,2,2), m=0.05, r2req 1e-10 (the
      iterations of stag_solve's, its true residual within TOL_RES, the
      seconds per iteration beside the unsharded solve's and the
      host-staging share), solve_multi_sharded on config 5's masses at
-     32^3x64 (each true residual within TOL_MULTI), two config-4
+     32^3x64 (each true residual within TOL_MULTI), the block-resident
+     path over (1,1,2,2) (every field of a trajectory each rank's
+     block): two config-4 nHYP trajectories (sloppy: B1b and B1) and one
+     HISQ trajectory (B2) at 8^4 cut in depth (SHARD_BLK_DEPTH,
+     SHARD_HISQ_DEPTH), from expm(AB_SMEARED_START tah) and
+     expm(HISQ_START tah), against this process's unsplit runs on the
+     same draws (phase 5's gates), stag_eigs on B1 blocks at 8^4
+     (TOL_BLOCK_EIG against the unsplit run), the Wilson eo solve on B3
+     blocks at 24^3x32 (iterations within TOL_CG_ITS of the unsplit
+     solve's, true residual within TOL_RES); two config-4
      trajectories (unsmeared) at 8^4 over (1,1,1,2) against the same
      draws without a mesh (phase 5's gates), and on the second pair the
      two ranks' pario file of 24^4 links read back and a flipped byte
      caught, the dry run (qex_tpu_torch.parallel.dryrun) over two ranks,
      and the app staghmc_spv under torchrun with -rank_geom=1x1x1x2 for
-     one trajectory (8^4);
+     one trajectory (8^4); last, once the ranks hold none of the
+     phase's earlier fields, at 24^4 one smeared force evaluation on
+     blocks (smear forward, the fermion's solve, the boson's operator,
+     pullback), each rank's max_memory_allocated and its peak above the
+     links and pseudofermions at most SHARD_MEM_RATIO of the same
+     evaluation's unsplit numbers in this process, all printed;
  40. io_formats: LIME with the checksum codec and with its zlib loop at
      24^4 and 32^3x64, MILC, modfile and timeslice files at 24^4, each
      written from the card and read back bit for bit with its checksum;
@@ -218,6 +237,7 @@ count, device-idle share and top operators.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import functools
 import io
 import json
@@ -709,31 +729,52 @@ def phase_solve(gen) -> dict:
     return res
 
 
-def config4_theory(lat, smear=None, sloppy: bool = False, mesh=None):
+def config4_theory(lat, smear=None, sloppy: bool = False, mesh=None,
+                   steps=(12, 6, 6), tau: float = 0.5):
     """exp_northstar32.py:45-56 composition (``smear=None``: unsmeared;
-    ``mesh``: its solves over a rank mesh)."""
+    ``mesh``: block-resident over a rank mesh; ``steps`` the gauge,
+    fermion and boson step counts, ``tau`` the trajectory length, both
+    cut for the block-resident runs)."""
     from qex_tpu_torch.gauge import action as ga
     from qex_tpu_torch.mcmc.theory import (FermionSpec, GaugeActionSpec,
                                            LatticeFieldTheory)
     from qex_tpu_torch.solvers.base import SolverParams
     return LatticeFieldTheory(
         lat,
-        gauge=GaugeActionSpec(ga.wilson(7.0), steps=12, scheme="2MN"),
-        fermions=[FermionSpec("fermion", mass=0.05, steps=6, scheme="2MN"),
-                  FermionSpec("boson", mass=0.5, steps=6, scheme="2MN")],
+        gauge=GaugeActionSpec(ga.wilson(7.0), steps=steps[0], scheme="2MN"),
+        fermions=[FermionSpec("fermion", mass=0.05, steps=steps[1],
+                              scheme="2MN"),
+                  FermionSpec("boson", mass=0.5, steps=steps[2],
+                              scheme="2MN")],
         smear=smear, bc="pppa",
         solver_params=SolverParams(r2req=1e-10, maxits=1500, restarts=3,
                                    sloppy=sloppy, mesh=mesh),
         force_solver_params=SolverParams(r2req=1e-8, maxits=1500,
                                          restarts=2, sloppy=sloppy,
                                          mesh=mesh),
-        tau=0.5)
+        tau=tau)
 
 
-def hisq_theory(lat):
-    """Config 5's fermion in an HMC (qex_tpu_torch.apps.hisq_forces)."""
+def hisq_theory(lat, mesh=None, steps=None, tau: float | None = None):
+    """Config 5's fermion in an HMC (``qex_tpu_torch.apps.hisq_forces``);
+    for the block-resident runs the same theory over ``mesh`` with
+    ``steps`` (gauge, fermion) and ``tau`` cut in depth."""
+    import dataclasses
+
     from qex_tpu_torch.apps.hisq_forces import hisq_theory as build
-    return build(lat)
+    from qex_tpu_torch.mcmc.theory import LatticeFieldTheory
+    th = build(lat)
+    if mesh is None and steps is None and tau is None:
+        return th
+    (g,), (f,) = th.gauges, th.fermions
+    steps = steps or (g.steps, f.steps)
+    return LatticeFieldTheory(
+        lat, gauge=dataclasses.replace(g, steps=steps[0]),
+        fermions=[dataclasses.replace(f, steps=steps[1])], bc=th.bc,
+        solver_params=dataclasses.replace(th.solver_params, mesh=mesh),
+        force_solver_params=dataclasses.replace(th.force_solver_params,
+                                                mesh=mesh),
+        tau=th.tau if tau is None else tau)
 
 
 def run_trajectories(th, lat, gen, u, n: int, tag: str,
@@ -3180,6 +3221,21 @@ SHARD_GEOM4 = (1, 1, 2, 2)
 SHARD_DIMS8 = (24, 24, 24, 24)
 SHARD_DIMS16 = (32, 32, 32, 64)          # config 5's volume
 SHARD_HMC_DIMS = (8, 8, 8, 8)
+SHARD_BLK_DIMS = (8, 8, 8, 8)            # block-resident trajectories, eigs
+SHARD_WIL_DIMS = (24, 24, 24, 32)        # B3/B3b on blocks, the block solve
+SHARD_MEM_DIMS = (24, 24, 24, 24)        # the smeared force's peak memory
+SHARD_MEM_RATIO = 0.40       # a rank's peaks over the unsplit evaluation's
+# eight restart cycles of a degree-4 filter: float32 does not resolve
+# the 8^4 spectrum's lowest eigenvalues (3e-7) to a relative 1e-6, and
+# the block and unsplit runs are held to the same cycles
+SHARD_EIG_ARGS = dict(tol=1e-6, seed=1, degree=4, m=32, max_restarts=8)
+# eigenvalues of the block run against the unsplit one, absolute: four
+# times the largest deviation read on the card (2.4e-9, the second of
+# the four, the same in two runs; 1.4e-9 in a run of 4848 applies), a
+# thousandth of the lowest eigenvalue (1.1e-5)
+TOL_BLOCK_EIG = 1e-8
+SHARD_BLK_DEPTH = dict(steps=(6, 3, 3), tau=0.25)   # config 4 cut in depth
+SHARD_HISQ_DEPTH = dict(steps=(6, 3), tau=0.25)
 SHARD_APP_ARGS = ["-ns=8", "-nt=8", "-rank_geom=1x1x1x2", "--ntraj", "1"]
 CONFIG5_MASSES = (0.05, 0.1, 0.2, 0.4)
 # phase 40 (io_formats): the volumes of the io row of PERF.md; MILC,
@@ -3214,10 +3270,13 @@ def _shard_fields(dev, dims8, dims16):
 
 
 def _shard_operators(lm, kind: str, f, x, m: float) -> dict:
-    """For float32 and bfloat16 links: the sharded d2ee and d2dd against
-    the unsharded kernel operators on the same card (gathered), and each
-    rank's local hop (both parities) against its plain twin on its
-    block; squared relative deviations, the worst over the ranks."""
+    """For float32 and bfloat16 links: the sharded d2ee and d2dd, on the
+    links each rank builds from its block of ``f`` (the backward links'
+    shifts exchanging faces), against the unsharded kernel operators on
+    the same card (gathered), and each rank's local hop (both parities)
+    against its plain twin on its block; squared relative deviations,
+    the worst over the ranks."""
+    from qex_tpu_torch.parallel.mesh import use_mesh
     from qex_tpu_torch.physics import stag_hisq as sh
     from qex_tpu_torch.physics import stag_shard as shd
     new, d2ee, d2dd, hop = (
@@ -3229,7 +3288,8 @@ def _shard_operators(lm, kind: str, f, x, m: float) -> dict:
     for ldt in (torch.float32, torch.bfloat16):
         name = f"{kind}_dslash" + ("_bf16" if ldt == torch.bfloat16 else "")
         p = new(f, ldt)
-        pl = shd.local_links(lm, p)
+        with use_mesh(lm):
+            pl = new(shd.block_of(lm, f), ldt)
         ee = shd.gather_fast(lm, shd.d2ee_sharded(lm, pl, xb, m))
         dd = shd.gather_fast(lm, shd.d2dd_sharded(lm, pl, xb))
         ref_ee, ref_dd = d2ee(p, x, m), d2dd(p, x)
@@ -3247,16 +3307,257 @@ def _shard_operators(lm, kind: str, f, x, m: float) -> dict:
     return out
 
 
+def _wilson_block_operators(dev, dims) -> dict:
+    """B3 and B3b on the four ranks' blocks at ``dims`` over (1,1,2,2),
+    links built by each rank from its block of the gauge field, against
+    the unsplit kernel on the same card (gathered); both parities, the
+    plain hop and the fused Schur epilogue; squared relative deviations,
+    the worst over the ranks (rank 0's record)."""
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.parallel.mesh import (local_block, make_lattice_mesh,
+                                             use_mesh)
+    from qex_tpu_torch.physics import stag_shard as shd
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.physics import wilson_pallas as wp
+    from qex_tpu_torch.physics import wilson_shard as wsh
+    lat = Lattice(dims)
+    lm = make_lattice_mesh(lat, SHARD_GEOM4)
+    u = _seeded_links(lat, dev, SEED + 36, 0.7)
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    X, Y, Z, T = dims
+    x = torch.randn((4, 3, T // 2, Z, Y * X), dtype=torch.complex64,
+                    generator=g, device=dev)
+    w = wl.new_wilson_eo(lat, u, 0.1)
+    with use_mesh(lm):
+        wb = wl.new_wilson_eo(lat, local_block(lm, u), 0.1)
+    xb = local_block(lm, x, "fast")
+    out = {}
+    for ldt in (torch.float32, torch.bfloat16):
+        name = "wilson8_hop" + ("_bf16" if ldt == torch.bfloat16 else "")
+        p = wp.new_pallas_wilson(w, ldt)
+        pb = wsh.links_w(lm, wb, ldt)
+        devs, err = [], 0.0
+        for par in (0, 1):
+            for fuse in (None, x):
+                got = wsh.hop_sharded(lm, pb, xb, par, None if fuse is None
+                                      else xb)
+                got = shd.gather_fast(lm, got)
+                ref = wp.hop_w(p, x, par, fuse)
+                devs.append(rel2(got, ref))
+                err = max(err, float((got - ref).abs().max()))
+        worst = lm.all_gather(torch.tensor(max(devs), dtype=torch.float64,
+                                           device=x.device))
+        out[name] = {"rel2_hop": float(max(worst)), "max_abs_err": err}
+        del p, pb
+    return out
+
+
+def _force_peak(th, gen, u) -> dict:
+    """One smeared force evaluation of ``th`` at links ``u`` (smear
+    forward, the fermion's solve and the boson's operator on the
+    smeared links, the pullback: the shared kick of ``mcmc.md``) after
+    a heatbath; the card's peak allocation during it above what was
+    allocated before (the links and pseudofermions included there),
+    and torch's own ``max_memory_allocated``."""
+    from qex_tpu_torch.mcmc import md
+    from qex_tpu_torch.parallel.mesh import use_mesh
+    cuda = u.is_cuda
+    with use_mesh(th.mesh):
+        phis = th.heatbath(gen, u)
+        kicks = [(i, 1.0, 0.0) for i, t in enumerate(th.terms) if t.smeared]
+        p = torch.zeros_like(u)
+        if cuda:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p = md._shared_smeared_kick(th._smear, th.terms, kicks, u, p, phis)
+        if cuda:
+            torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t0,
+           "force_norm2": float(th.mesh.all_reduce(
+               (p.abs() ** 2).sum().double()) if th.mesh is not None
+               else (p.abs() ** 2).sum())}
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        rec.update(max_memory_allocated=peak, base_allocated=base,
+                   peak_bytes=peak - base)
+    return rec
+
+
+def _block_stage(rank: int, dev: str, sizes: dict, lap) -> dict:
+    """Phase 39's block-resident path on four ranks at (1,1,2,2): two
+    config-4 nHYP trajectories (sloppy solves: B1b, B1), one HISQ
+    trajectory (B2), ``stag_eigs`` on B1, the Wilson eo solve on B3, and
+    at ``mem_dims`` one smeared force evaluation with its peak memory;
+    every field is this rank's block.  Rank 0 hands back the gathered
+    results; the parent runs the same unsplit (:func:`_block_refs`)."""
+    from qex_tpu_torch.eigens import hisqev
+    from qex_tpu_torch.gauge.smear import HypCoefs
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.parallel.mesh import (gather_field, local_block,
+                                             make_lattice_mesh, use_mesh)
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.solvers.base import SolverParams
+    rec = {}
+    lat = Lattice(sizes["blk_dims"])
+    lm = make_lattice_mesh(lat, SHARD_GEOM4)
+
+    def run(tag, th, u, gen, n):
+        st0, t0 = dict(lm.stats), time.perf_counter()
+        ub, dhs = local_block(lm, u), []
+        del u
+        for _ in range(n):
+            ub, state = th.hmc_step(gen, ub, always_accept=True)
+            dhs.append(state.dH)
+        if ub.is_cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        u1 = gather_field(lm, ub)
+        rec[tag] = {"dH": dhs, "h_old": state.h_old, "seconds": secs,
+                    "host_staged_s": lm.stats["staged_s"] - st0["staged_s"],
+                    "links": u1.cpu().numpy() if rank == 0 else None}
+        lap(f"block_{tag}")
+
+    run("config4", config4_theory(lat, smear=HypCoefs(0.4, 0.5, 0.5),
+                                  sloppy=True, mesh=lm, **SHARD_BLK_DEPTH),
+        _seeded_links(lat, dev, SEED + 30, AB_SMEARED_START),
+        torch.Generator(device=dev).manual_seed(SEED + 31), 2)
+    run("hisq", hisq_theory(lat, mesh=lm, **SHARD_HISQ_DEPTH),
+        _seeded_links(lat, dev, SEED + 32, HISQ_START),
+        torch.Generator(device=dev).manual_seed(SEED + 33), 1)
+    t0 = time.perf_counter()
+    with use_mesh(lm):
+        r = hisqev.stag_eigs(lat, local_block(lm, _seeded_links(
+            lat, dev, SEED + 34, 0.7)), 4, **SHARD_EIG_ARGS)
+    rec["eigs"] = {"evals": [float(v) for v in r.evals],
+                   "matvecs": r.info["matvecs_A"],
+                   "seconds": time.perf_counter() - t0}
+    lap("block_eigs")
+    latw = Lattice(sizes["wil_dims"])
+    lmw = make_lattice_mesh(latw, SHARD_GEOM4)
+    uw = _seeded_links(latw, dev, SEED + 36, 0.7)
+    bw = torch.randn((4, 3) + latw.dims, dtype=torch.complex64,
+                     generator=torch.Generator(device=dev).manual_seed(
+                         SEED + 38), device=dev)
+    st0, t0 = dict(lmw.stats), time.perf_counter()
+    with use_mesh(lmw):
+        x, stats = wl.solve_eo(wl.new_wilson_eo(latw, local_block(lmw, uw),
+                                                0.1),
+                               local_block(lmw, bw),
+                               SolverParams(r2req=1e-10, maxits=2000))
+    secs = time.perf_counter() - t0
+    x = gather_field(lmw, x)
+    rec["wilson"] = {"iterations": stats.iterations, "seconds": secs,
+                     "host_staged_s": lmw.stats["staged_s"] - st0["staged_s"]}
+    if rank == 0:
+        wd = wl.new_wilson(latw, uw.to(torch.complex128), 0.1)
+        b64 = bw.to(torch.complex128)
+        r = wl.wilson_d(wd, x.to(torch.complex128)) - b64
+        rec["wilson"]["true_rel_r2"] = float((r.abs() ** 2).sum()
+                                             / (b64.abs() ** 2).sum())
+    del uw, bw, x
+    lap("block_wilson")
+    return rec
+
+
+def _force_mem_stage(dev: str, sizes: dict) -> dict:
+    """Phase 39's memory check on four ranks at (1,1,2,2): one smeared
+    force evaluation on blocks at ``mem_dims`` (:func:`_force_peak`),
+    entered with nothing of the phase's earlier fields allocated, and
+    every rank's ``max_memory_allocated`` and peak above what it held
+    before the evaluation."""
+    import gc
+
+    from qex_tpu_torch.gauge.smear import HypCoefs
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.parallel.mesh import local_block, make_lattice_mesh
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    latm = Lattice(sizes["mem_dims"])
+    lmm = make_lattice_mesh(latm, SHARD_GEOM4)
+    um = local_block(lmm, _seeded_links(latm, dev, SEED + 35,
+                                        AB_SMEARED_START))
+    th = config4_theory(latm, smear=HypCoefs(0.4, 0.5, 0.5), sloppy=True,
+                        mesh=lmm)
+    f = _force_peak(th, torch.Generator(device=dev).manual_seed(SEED + 39),
+                    um)
+    f["resident_before"] = resident
+    for key in ("max_memory_allocated", "peak_bytes", "resident_before"):
+        got = lmm.all_gather(torch.tensor(float(f[key]), dtype=torch.float64,
+                                          device=dev))
+        f["rank_" + key] = [float(v) for v in got]
+    return f
+
+
+def _block_refs(dev: str, sizes: dict) -> dict:
+    """The unsplit runs of :func:`_block_stage` on the same draws, in
+    this process: the trajectories, the eigensolve, the Wilson solve's
+    iterations and the smeared force evaluation's peak memory."""
+    import gc
+
+    from qex_tpu_torch.eigens import hisqev
+    from qex_tpu_torch.gauge.smear import HypCoefs
+    from qex_tpu_torch.lattice import Lattice
+    from qex_tpu_torch.physics import wilson as wl
+    from qex_tpu_torch.solvers.base import SolverParams
+    out = {}
+    lat = Lattice(sizes["blk_dims"])
+    for tag, th, start, seed, n in (
+            ("config4", config4_theory(lat, smear=HypCoefs(0.4, 0.5, 0.5),
+                                       sloppy=True, **SHARD_BLK_DEPTH),
+             AB_SMEARED_START, 30, 2),
+            ("hisq", hisq_theory(lat, **SHARD_HISQ_DEPTH), HISQ_START, 32,
+             1)):
+        u = _seeded_links(lat, dev, SEED + seed, start)
+        gen = torch.Generator(device=dev).manual_seed(SEED + seed + 1)
+        dhs = []
+        for _ in range(n):
+            u, state = th.hmc_step(gen, u, always_accept=True)
+            dhs.append(state.dH)
+        out[tag] = {"dH": dhs, "h_old": state.h_old,
+                    "links": u.cpu().numpy()}
+    r = hisqev.stag_eigs(lat, _seeded_links(lat, dev, SEED + 34, 0.7), 4,
+                         **SHARD_EIG_ARGS)
+    out["eigs"] = [float(v) for v in r.evals]
+    latw = Lattice(sizes["wil_dims"])
+    bw = torch.randn((4, 3) + latw.dims, dtype=torch.complex64,
+                     generator=torch.Generator(device=dev).manual_seed(
+                         SEED + 38), device=dev)
+    _, stats = wl.solve_eo(wl.new_wilson_eo(
+        latw, _seeded_links(latw, dev, SEED + 36, 0.7), 0.1), bw,
+        SolverParams(r2req=1e-10, maxits=2000))
+    out["wilson_iterations"] = stats.iterations
+    if dev != "cpu":
+        gc.collect()
+        torch.cuda.empty_cache()
+        latm = Lattice(sizes["mem_dims"])
+        th = config4_theory(latm, smear=HypCoefs(0.4, 0.5, 0.5), sloppy=True)
+        out["force_mem"] = _force_peak(
+            th, torch.Generator(device=dev).manual_seed(SEED + 39),
+            _seeded_links(latm, dev, SEED + 35, AB_SMEARED_START))
+    return out
+
+
 def _shard_rank(rank: int, nranks: int, init: str, dev: str, sizes: dict,
                 queue) -> None:
     """One rank of phase 39 (see :func:`phase_sharded`)."""
     import torch.distributed as dist
     import qex_tpu_torch  # noqa: F401  (pins full-f32 arithmetic)
     torch.set_num_threads(1)
+    # a timeout, so that a rank left waiting fails instead of hanging
     dist.init_process_group("gloo", init_method=init, world_size=nranks,
-                            rank=rank)
+                            rank=rank, timeout=datetime.timedelta(
+                                seconds=300))
     try:
-        queue.put((rank, _shard_checks(rank, dev, sizes)))
+        rec = _shard_checks(rank, dev, sizes)
+        if dev != "cpu":
+            # once _shard_checks has returned, so that none of its whole
+            # fields is still allocated while the peak is read
+            rec["blocks"]["force_mem"] = _force_mem_stage(dev, sizes)
+        queue.put((rank, rec))
     finally:
         dist.destroy_process_group()
 
@@ -3267,7 +3568,8 @@ def _shard_checks(rank: int, dev: str, sizes: dict) -> dict:
     from qex_tpu_torch.lattice import Lattice
     from qex_tpu_torch.ops import eo, linalg
     from qex_tpu_torch.parallel import dryrun
-    from qex_tpu_torch.parallel.mesh import local_block, make_lattice_mesh
+    from qex_tpu_torch.parallel.mesh import (gather_field, local_block,
+                                             make_lattice_mesh)
     from qex_tpu_torch.physics import stag_fast as sf
     from qex_tpu_torch.physics import stag_hisq as sh
     from qex_tpu_torch.physics import stag_shard as shd
@@ -3302,6 +3604,9 @@ def _shard_checks(rank: int, dev: str, sizes: dict) -> dict:
             res = _shard_operators(lm, kind, f, x, m)
             if lm.rank == 0:
                 out["operators"][f"{kind} {geom}"] = res
+    res = _wilson_block_operators(dev, sizes["wil_dims"])
+    if rank == 0:
+        out["operators"][f"wilson8 {SHARD_GEOM4}"] = res
     dist.barrier()
     lap("operators")
 
@@ -3318,25 +3623,35 @@ def _shard_checks(rank: int, dev: str, sizes: dict) -> dict:
     rhs = 0.05 * be - st.dslash_eo(s8, bo, 0)
     params = SolverParams(r2req=1e-10, maxits=5000, restarts=5)
     stats0 = dict(lm.stats)
+    fs8_b, rhs_b = shd.block_of(lm, fs8), local_block(lm, rhs, "eo")
     sync()
     t0 = time.perf_counter()
-    x_e, stats = shd.solve_ee_sharded(lm, fs8, rhs, 0.05, params)
+    x_e, stats = shd.solve_ee_sharded(lm, fs8_b, rhs_b, 0.05, params)
     sync()
     secs = time.perf_counter() - t0
+    x_e = gather_field(lm, x_e, "eo")
+    del fs8_b, rhs_b
     staged = lm.stats["staged_s"] - stats0["staged_s"]
     copies = lm.stats["copy_s"] - stats0["copy_s"]
     # B2: config 5's multishift on the four ranks
     lm16 = make_lattice_mesh(lat16, SHARD_GEOM4)
     b16 = sf.from_fast(x16, lat16)
+    f16_b = shd.block_of(lm16, f16)
     sync()
     t0 = time.perf_counter()
     xs16, stats16 = shd.solve_multi_sharded(
-        lm16, f16, b16, CONFIG5_MASSES,
+        lm16, f16_b, local_block(lm16, b16, "eo"), CONFIG5_MASSES,
         SolverParams(r2req=1e-10, maxits=2000))
     sync()
     secs16 = time.perf_counter() - t0
+    xs16 = [gather_field(lm16, x, "eo") for x in xs16]
+    del f16_b
     dist.barrier()
     lap("solves")
+    # block-resident trajectories, the Wilson block solve, the block
+    # eigensolve and the smeared force's peak memory, on four ranks
+    out["blocks"] = _block_stage(rank, dev, sizes, lap)
+    dist.barrier()
     # two config-4 trajectories over a pair, the other pair's first rank
     # running them without a mesh on the same draws; then pario and the
     # dry run over the second pair
@@ -3353,13 +3668,16 @@ def _shard_checks(rank: int, dev: str, sizes: dict) -> dict:
     lat_h = Lattice(sizes["hmc_dims"])
     u_h = _seeded_links(lat_h, dev, SEED + 25, AB_SMEARED_START)
     if rank <= 2:
-        th = config4_theory(lat_h, mesh=(make_lattice_mesh(
-            lat_h, SHARD_GEOMS2[1], group=pair) if rank < 2 else None))
+        lm_h = (make_lattice_mesh(lat_h, SHARD_GEOMS2[1], group=pair)
+                if rank < 2 else None)
+        th = config4_theory(lat_h, mesh=lm_h)
         gen_h = torch.Generator(device=dev).manual_seed(SEED + 26)
-        u1, dhs = u_h, []
+        u1, dhs = (u_h if lm_h is None else local_block(lm_h, u_h)), []
         for _ in range(2):
             u1, state = th.hmc_step(gen_h, u1, always_accept=True)
             dhs.append(state.dH)
+        if lm_h is not None:
+            u1 = gather_field(lm_h, u1)
         out["hmc"] = {"dH": dhs, "h_old": state.h_old,
                       "links": u1.cpu().numpy()}
         lap("hmc")
@@ -3491,7 +3809,7 @@ def _nccl_one_rank(dims8) -> dict:
     import torch.distributed as dist
     from qex_tpu_torch.lattice import Lattice
     from qex_tpu_torch.parallel.distributed import free_port
-    from qex_tpu_torch.parallel.mesh import make_lattice_mesh
+    from qex_tpu_torch.parallel.mesh import make_lattice_mesh, use_mesh
     from qex_tpu_torch.physics import stag_fast as sf
     from qex_tpu_torch.physics import stag_hisq as sh
     from qex_tpu_torch.physics import stag_shard as shd
@@ -3505,7 +3823,8 @@ def _nccl_one_rank(dims8) -> dict:
         rec = {"backend": dist.get_backend()}
         for ldt in (torch.float32, torch.bfloat16):
             p = sh.new_stag8(fs8, ldt)
-            pl = shd.local_links(lm, p)
+            with use_mesh(lm):
+                pl = sh.new_stag8(shd.block_of(lm, fs8), ldt)
             xb = shd.fast_block(lm, x)
             rec[str(ldt)] = {
                 "d2ee_equal": bool(torch.equal(
@@ -3530,6 +3849,8 @@ def phase_sharded(dev: str = "cuda", sizes: dict | None = None) -> dict:
     from qex_tpu_torch.parallel.distributed import free_port
     sizes = dict({"dims8": SHARD_DIMS8, "dims16": SHARD_DIMS16,
                   "hmc_dims": SHARD_HMC_DIMS, "io_dims": IO_DIMS[0],
+                  "blk_dims": SHARD_BLK_DIMS, "wil_dims": SHARD_WIL_DIMS,
+                  "mem_dims": SHARD_MEM_DIMS,
                   "pario_path": str(ROOT / "build" / "chip_smoke_pario.lime")},
                  **(sizes or {}))
     Path(sizes["pario_path"]).parent.mkdir(parents=True, exist_ok=True)
@@ -3552,6 +3873,10 @@ def phase_sharded(dev: str = "cuda", sizes: dict | None = None) -> dict:
                                   sizes), timeout=600)
     res["ranks_seconds"] = time.perf_counter() - t0
     r0, r2 = got[0], got[2]
+    t0 = time.perf_counter()
+    res["blocks"] = _block_record(r0["blocks"], _block_refs(dev, sizes),
+                                  sizes)
+    res["blocks"]["unsplit_seconds"] = time.perf_counter() - t0
     res["operators"] = {**r0["operators"], **r2["operators"]}
     res["solve_ee"], res["solve_multi"] = r0["solve_ee"], r0["solve_multi"]
     u_mesh, u_ref = r0["hmc"].pop("links"), r2["hmc"].pop("links")
@@ -3577,13 +3902,76 @@ def phase_sharded(dev: str = "cuda", sizes: dict | None = None) -> dict:
     res["kernel_launches"] = launches
     emit(res)
     _check_sharded(res, dev)
+    _check_blocks(res["blocks"], dev)
     return res
+
+
+def _block_record(got: dict, ref: dict, sizes: dict) -> dict:
+    """Phase 39's block-resident numbers beside the unsplit ones."""
+    rec = {"rank_geom": list(SHARD_GEOM4)}
+    for tag in ("config4", "hisq"):
+        g, r = got[tag], ref[tag]
+        rec[tag] = {"dims": list(sizes["blk_dims"]), "dH_blocks": g["dH"],
+                    "dH": r["dH"], "h_old": r["h_old"],
+                    "seconds": g["seconds"],
+                    "host_staged_s": g["host_staged_s"],
+                    "max_link_dev": float(abs(g["links"]
+                                              - r["links"]).max())}
+    rec["eigs"] = dict(got["eigs"], dims=list(sizes["blk_dims"]),
+                       evals_unsplit=ref["eigs"])
+    rec["wilson"] = dict(got["wilson"], dims=list(sizes["wil_dims"]),
+                         iterations_unsplit=ref["wilson_iterations"])
+    if "force_mem" in got:
+        g, r = got["force_mem"], ref["force_mem"]
+        rec["force_mem"] = {
+            "dims": list(sizes["mem_dims"]),
+            "rank_max_memory_allocated": g["rank_max_memory_allocated"],
+            "rank_peak_bytes": g["rank_peak_bytes"],
+            "rank_resident_before": g["rank_resident_before"],
+            "unsplit_max_memory_allocated": r["max_memory_allocated"],
+            "unsplit_peak_bytes": r["peak_bytes"],
+            "worst_ratio": max(g["rank_max_memory_allocated"])
+            / r["max_memory_allocated"],
+            "worst_ratio_peak_bytes": max(g["rank_peak_bytes"])
+            / r["peak_bytes"],
+            "seconds": g["seconds"], "seconds_unsplit": r["seconds"],
+            "force_norm2": g["force_norm2"],
+            "force_norm2_unsplit": r["force_norm2"],
+            "note": "four processes share one card"}
+    return rec
+
+
+def _check_blocks(rec: dict, dev: str) -> None:
+    for tag in ("config4", "hisq"):
+        h = rec[tag]
+        if not h["max_link_dev"] <= TOL_AB_LINK:
+            raise AssertionError(f"blocks: {tag} link deviation {h}")
+        for a, b in zip(h["dH_blocks"], h["dH"]):
+            if not abs(a - b) <= TOL_AB_DH_REL_H * abs(h["h_old"]):
+                raise AssertionError(f"blocks: {tag} dH {h}")
+    e = rec["eigs"]
+    for a, b in zip(e["evals"], e["evals_unsplit"]):
+        if not abs(a - b) <= TOL_BLOCK_EIG:
+            raise AssertionError(f"blocks: eigenvalues {e}")
+    w = rec["wilson"]
+    if abs(w["iterations"] - w["iterations_unsplit"]) > TOL_CG_ITS \
+            or not w["true_rel_r2"] <= TOL_RES:
+        raise AssertionError(f"blocks: Wilson solve {w}")
+    if dev != "cpu":
+        f = rec["force_mem"]
+        if not max(f["worst_ratio"], f["worst_ratio_peak_bytes"]) <= \
+                SHARD_MEM_RATIO:
+            raise AssertionError(f"blocks: peak memory {f}")
+        if not abs(f["force_norm2"] - f["force_norm2_unsplit"]) <= \
+                1e-3 * f["force_norm2_unsplit"]:
+            raise AssertionError(f"blocks: smeared force {f}")
 
 
 def _check_sharded(res: dict, dev: str) -> None:
     for key, rec in res["operators"].items():
         for name, r in rec.items():
-            for k in ("rel2_d2ee", "rel2_d2dd", "rel2_local_hop_vs_twin"):
+            for k in (("rel2_hop",) if name.startswith("wilson8") else
+                      ("rel2_d2ee", "rel2_d2dd", "rel2_local_hop_vs_twin")):
                 if not r[k] <= TOL_KERNEL:
                     raise AssertionError(f"sharded {key} {name}: {k} {r[k]}")
     for ldt, r in res.get("nccl_one_rank", {}).items():
@@ -3885,7 +4273,7 @@ def main() -> int:
     paths = {"stag8": (smeared, app, smulti, rhmc, hasen, ns32, eigs_stag,
                        meas, app_pbp, sharded),
              "hisq16": (hsolve, hhmc, hasen, eigs_hisq, sharded),
-             "wilson8": (wsolve, wmesons, wmg, meas),
+             "wilson8": (wsolve, wmesons, wmg, meas, sharded),
              **{kind: (gtime, gcg) for kind in GEN_KINDS}}
     kernels = []
     for name, (kind, _ldt, _c) in KERNELS.items():

@@ -12,11 +12,18 @@ complex128.  The first ``--warmup`` trajectories are accepted without
 the Metropolis test.  Each trajectory draws from a ``torch.Generator``
 seeded from the deck's ``(serial_seed, traj)``, the hot start from its
 ``parallel_seed`` (``apps.staghmc_spv.seeded_generator``).
+
+A deck's ``mpi-geometry`` runs block-resident over the process group
+(under torchrun the app starts it: NCCL where every rank has a card,
+else gloo), as ``staghmc_spv``'s ``-rank_geom``; rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import sys
 import time
 
@@ -42,14 +49,45 @@ def main(argv=None) -> int:
         return 2
 
     import qex_tpu_torch  # noqa: F401  (pins full-f32 arithmetic)
-    from qex_tpu_torch.apps.staghmc_spv import hot_start, seeded_generator
-    from qex_tpu_torch.gauge import loops
+    from qex_tpu_torch.parallel import distributed
+
+    own = False
+    if "WORLD_SIZE" in os.environ and not torch.distributed.is_initialized():
+        ws = int(os.environ["WORLD_SIZE"])
+        distributed.initialize("nccl" if not args.cpu
+                               and ws <= torch.cuda.device_count()
+                               else "gloo")
+        own = True
+    try:
+        return _run(args)
+    finally:
+        if own:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args) -> int:
     from qex_tpu_torch.mcmc.builder import theory_from_json
-    from qex_tpu_torch.ops import group
+    from qex_tpu_torch.parallel import distributed
 
     lat, theory, meta = theory_from_json(args.json)
+    lm = meta["mesh"]
     device = torch.device("cpu" if args.cpu else "cuda")
+    if lm is not None and not args.cpu:
+        device = torch.device("cuda", distributed.local_rank()
+                              % torch.cuda.device_count())
     dtype = torch.complex128 if args.cpu else torch.complex64
+    with (contextlib.redirect_stdout(io.StringIO())
+          if lm is not None and lm.rank != 0 else contextlib.nullcontext()):
+        return _chain(args, lat, theory, meta, device, dtype)
+
+
+def _chain(args, lat, theory, meta, device, dtype) -> int:
+    from qex_tpu_torch.apps.staghmc_spv import hot_start, seeded_generator
+    from qex_tpu_torch.gauge import loops
+    from qex_tpu_torch.ops import group
+    from qex_tpu_torch.parallel.mesh import local_block, use_mesh
+
+    lm = meta["mesh"]
     print(f"# mcmc_hmc: {lat.dims} terms="
           f"{[t.name for t in theory.terms]} tau={meta['tau']} "
           f"device={device}")
@@ -57,6 +95,8 @@ def main(argv=None) -> int:
         u = group.unit_gauge(lat, dtype, device)
     else:
         u = hot_start(lat, dtype, device, meta["parallel_seed"])
+    if lm is not None:
+        u = local_block(lm, u)
 
     n_acc = 0
     for traj in range(args.ntraj):
@@ -65,7 +105,7 @@ def main(argv=None) -> int:
         u, st = theory.hmc_step(
             seeded_generator(device, meta["serial_seed"], traj), u,
             always_accept=warm)
-        with torch.no_grad():
+        with torch.no_grad(), use_mesh(lm):
             pl = float(loops.plaquette(lat, u))
             plp = complex(loops.polyakov_loop(lat, u)).real
         n_acc += int(st.accepted and not warm)

@@ -23,12 +23,19 @@ chiral condensate of ``observables.condensate`` on the unsmeared links),
 ``SOLVER``, ``REVCHECK``.
 
 ``-rank_geom`` splits the lattice over the ranks of a process group
-(``parallel.mesh``): the staggered and HISQ solves run on each rank's
-block (``physics.stag_shard``), and everything else, the gauge field
-included, is replicated on every rank, each drawing the same momenta
-and noise from the same seeded generators, so the chain is the one run
-without a mesh.  Rank 0 prints and saves.  ``--profile`` prints a timer
-tree of each trajectory (``utils.profile``).
+(``parallel.mesh``, z and t only: ``1x1xgzxgt``) and runs
+block-resident: each rank holds only its block of the gauge field, the
+momenta, the smeared links and the pseudofermions, exchanges faces
+where a shift crosses its block and all-reduces every sum in float64
+(``mcmc.theory``); the solves run on the block kernels
+(``physics.stag_shard``).  Every rank draws the same momenta and noise
+whole from the same seeded generators and keeps its block, so the chain
+is the one run without a mesh.  Rank 0 prints the lines, from global
+sums; each rank saves its block of a checkpoint
+(``parallel.distributed.save_shards``, a directory ``<name>.shards``)
+and a resume reads it back re-cut for the run's own geometry, or cuts
+a one-process checkpoint.  ``--profile`` prints a timer tree of each
+trajectory (``utils.profile``).
 
 Each trajectory draws from a ``torch.Generator`` seeded from
 ``(serial_seed, traj)`` (the hot start from ``parallel_seed``), so a
@@ -235,11 +242,33 @@ def _rank_mesh(rank_geom: str, lat, args):
     return make_lattice_mesh(lat, rank_geom=rg), own
 
 
+def _save_shards(fn: str, lm, u, state: dict, traj: int) -> None:
+    """Each rank's block of the links under ``fn.shards/`` and, from
+    rank 0, the chain's state beside them."""
+    import json
+    distributed.save_shards(fn + ".shards", lm, u, n_site_axes=3)
+    if lm.rank == 0:
+        with open(os.path.join(fn + ".shards", "chain.json"), "w") as f:
+            json.dump({"rng_state": state, "traj": traj}, f)
+    lm.barrier()
+
+
+def _load_shards(fn: str, lm, dtype, device):
+    """(this rank's block, rng_state, traj) of :func:`_save_shards`'s
+    checkpoint, re-cut for ``lm``."""
+    import json
+    u = distributed.load_shards(fn + ".shards", lm, 3, device=device)
+    with open(os.path.join(fn + ".shards", "chain.json")) as f:
+        chain = json.load(f)
+    return u.to(dtype), chain["rng_state"], int(chain["traj"])
+
+
 def _run(args, cfg, lat, lm, device, dtype, ntraj) -> int:
     from qex_tpu_torch.gauge import loops
     from qex_tpu_torch.io import checkpoint as ckpt
     from qex_tpu_torch.observables import condensate
     from qex_tpu_torch.ops import group
+    from qex_tpu_torch.parallel.mesh import local_block, use_mesh
     from qex_tpu_torch.solvers.base import SolverParams
     from qex_tpu_torch.utils import profile
 
@@ -257,8 +286,11 @@ def _run(args, cfg, lat, lm, device, dtype, ntraj) -> int:
     if cfg.start_config > 0:
         fn = os.path.join(cfg.save_path,
                           f"{cfg.save_filename}_{cfg.start_config}")
-        u, rng_state, start_traj = ckpt.load_checkpoint(fn, lat, dtype,
-                                                        device)
+        if lm is not None and os.path.isdir(fn + ".shards"):
+            u, rng_state, start_traj = _load_shards(fn, lm, dtype, device)
+        else:
+            u, rng_state, start_traj = ckpt.load_checkpoint(fn, lat, dtype,
+                                                            device)
         n_acc = int(rng_state.get("n_acc", 0))
         if int(rng_state.get("serial_seed", cfg.serial_seed)) \
                 != cfg.serial_seed:
@@ -271,6 +303,8 @@ def _run(args, cfg, lat, lm, device, dtype, ntraj) -> int:
         u = group.unit_gauge(lat, dtype, device)
     else:
         u = hot_start(lat, dtype, device, cfg.parallel_seed)
+    if lm is not None and u.shape[3:] == tuple(lat.dims):
+        u = local_block(lm, u)
 
     prof = profile.Profiler() if args.profile else None
     for traj in range(start_traj, start_traj + ntraj):
@@ -303,7 +337,7 @@ def _run(args, cfg, lat, lm, device, dtype, ntraj) -> int:
             print(f"Reversed H: {rev['h2']:.15g}")
             print(f"REVCHECK dHrev {rev['dH_rev']:.6g} "
                   f"udev2 {rev['u_dev2']:.6g} pdev2 {rev['p_dev2']:.6g}")
-        with torch.no_grad():
+        with torch.no_grad(), use_mesh(lm):
             if cfg.plaq_freq and (traj + 1) % cfg.plaq_freq == 0:
                 print(f"MEASplaq {float(loops.plaquette(lat, u)):.15g}")
                 if cfg.plaq_verbose:
@@ -321,15 +355,16 @@ def _run(args, cfg, lat, lm, device, dtype, ntraj) -> int:
                     params=SolverParams(r2req=cfg.a_tol,
                                         maxits=cfg.a_maxits, restarts=3))
                 print(f"MEASpbp {pbp:.10g}")
-        if (cfg.save_freq and (traj + 1) % cfg.save_freq == 0
-                and (lm is None or lm.rank == 0)):
+        if cfg.save_freq and (traj + 1) % cfg.save_freq == 0:
             fn = os.path.join(cfg.save_path,
                               f"{cfg.save_filename}_{traj + 1}")
-            ckpt.save_checkpoint(fn, u,
-                                 {"serial_seed": cfg.serial_seed,
-                                  "parallel_seed": cfg.parallel_seed,
-                                  "n_acc": n_acc},
-                                 traj + 1)
+            state = {"serial_seed": cfg.serial_seed,
+                     "parallel_seed": cfg.parallel_seed, "n_acc": n_acc}
+            if lm is not None:
+                _save_shards(fn, lm, u, state, traj + 1)
+                fn += ".shards"
+            else:
+                ckpt.save_checkpoint(fn, u, state, traj + 1)
             print(f"# saved {fn}")
     done = ntraj - max(0, min(cfg.no_metropolis_until - start_traj, ntraj))
     if done > 0:

@@ -223,7 +223,7 @@ def main(argv=None) -> int:
     if gzs:
         lm2 = make_lattice_mesh(lat, rank_geom=(1, 1, max(gzs),
                                                 lm.size // max(gzs)))
-        ee, _ = shd.ops8(lm2, fs)
+        ee, _ = shd.ops8(lm2, shd.block_of(lm2, fs))
         xb = shd.fast_block(lm2, bf)
         dt, n = _timeit(lambda: ee(xb, 0.1), dev, budget)
         say(f"stencil d2ee ({lm2.rank_geom} mesh): {dt*1e3:9.2f} ms "

@@ -15,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops import linalg
+from ..parallel import mesh
 from . import lanczos
 from .lanczos import bind, eigs_hermitian_dev, gs_pass, lanczos_hermitian
 
@@ -79,7 +79,7 @@ def estimate_spectral_range_dev(op: Callable, example: torch.Tensor,
     bb = torch.zeros((m + 1,) + tuple(example.shape), dtype=example.dtype,
                      device=example.device)
     v = lanczos.start_vector(example, seed)
-    bb[0] = v / torch.sqrt(linalg.norm2(v))
+    bb[0] = v / torch.sqrt(lanczos.norm2(v))
     rdt = example.real.dtype
     al = torch.zeros(m, dtype=rdt, device=example.device)
     be = torch.zeros(m, dtype=rdt, device=example.device)
@@ -87,7 +87,7 @@ def estimate_spectral_range_dev(op: Callable, example: torch.Tensor,
         w, c1 = gs_pass(bb[:j + 1], op(bb[j]))
         w, _ = gs_pass(bb[:j + 1], w)           # second pass
         al[j] = c1[j].real
-        be[j] = torch.sqrt(linalg.norm2(w)) + 1e-300
+        be[j] = torch.sqrt(lanczos.norm2(w)) + 1e-300
         bb[j + 1] = w / be[j]
     al = al.to("cpu", torch.float64).numpy()
     be = be.to("cpu", torch.float64).numpy()
@@ -110,11 +110,13 @@ def eigs_filtered(op: Callable, example: torch.Tensor, n_eigs: int, *,
 
     ``device``: take :func:`estimate_spectral_range_dev` for the
     window; default: on any device but the CPU, as the JAX package
-    selects its device drivers off its CPU backend.  (Its two Lanczos
-    drivers are one here, :func:`lanczos.eigs_hermitian_dev`.)"""
+    selects its device drivers off its CPU backend, and on a rank mesh's
+    blocks, where each of the host loop's per-vector dots would be an
+    all-reduce and the batched driver takes three a step.  (Its two
+    Lanczos drivers are one here, :func:`lanczos.eigs_hermitian_dev`.)"""
     op = bind(op, op_args)
     if device is None:
-        device = example.device.type != "cpu"
+        device = example.device.type != "cpu" or mesh.active() is not None
     if window is None:
         est = estimate_spectral_range_dev if device \
             else estimate_spectral_range
@@ -135,9 +137,9 @@ def eigs_filtered(op: Callable, example: torch.Tensor, n_eigs: int, *,
     ths, rs = [], []
     for v in vecs:
         av = op(v)
-        th = linalg.dot(v, av).real
+        th = lanczos.dot(v, av).real
         ths.append(th)
-        rs.append(torch.sqrt(linalg.norm2(av - th * v)))
+        rs.append(torch.sqrt(lanczos.norm2(av - th * v)))
     thetas = torch.stack(ths).to("cpu", torch.float64).numpy()
     resids = torch.stack(rs).to("cpu", torch.float64).numpy()
     order = np.argsort(thetas)

@@ -14,6 +14,12 @@ every operator apply; here it converts once around the whole solve
 (inner products do not depend on the layout).  ``EigResult.vecs`` keeps
 the canonical even-site layout ``(n, nc, *dims_h)``, which deflation and
 the apps consume.
+
+On a rank mesh (inside ``parallel.mesh.use_mesh``) ``u`` is this rank's
+block: the operator runs on the block kernels
+(``stag_shard.solve_route``), the Lanczos basis is a tensor of blocks
+with all-reduced dots (``eigens.lanczos``), and ``EigResult.vecs`` holds
+this rank's blocks of the eigenvectors.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from ..lattice import Lattice
+from ..parallel import mesh as pmesh
 from ..physics import stag_fast as sf
 from ..physics import staggered as st
 from .chebyshev import (eigs_filtered, estimate_spectral_range,
@@ -55,21 +62,28 @@ def _normal_op(lat: Lattice, u: torch.Tensor | None, bc: str, naik: bool,
     ``links``: a precomputed (fat, long) pair (e.g. from
     ``gauge.fat7.hisq_links_lowmem``), which implies naik; ``naik``
     alone fattens the phased ``u`` here."""
-    from ..physics import stag_hmc, stag_solve
+    from ..physics import stag_hmc, stag_shard, stag_solve
     if lat.nd != 4:
         raise ValueError("the eigensolvers run in the 4-d fast layout")
     if links is None and naik:
         from ..gauge import fat7
         links = fat7.hisq_links_lowmem(lat, st.phase_links(lat, u, bc))
     ref = u if links is None else links[0]
-    X, Y, Z, T = lat.dims
+    X, Y, Z, T = pmesh.block_lattice(lat).dims
     example = torch.zeros((lat.nc, T // 2, Z, Y * X), dtype=ref.dtype,
                           device=ref.device)
     if links is None:
-        fs = sf.new_fast(st.new_stag_eo(lat, u, bc))
-        return stag_solve.fast_ops(fs, example, m=m)[0], example
-    ee, dd = stag_hmc._fast3_ops(sf.new_fast3(st.new_stag3_eo(lat, *links)))
-    return (dd if m is None else partial(ee, m=m)), example
+        f = sf.new_fast(st.new_stag_eo(lat, u, bc))
+
+        def whole():
+            return stag_solve.fast_ops(f, example, m=m)
+    else:
+        f = sf.new_fast3(st.new_stag3_eo(lat, *links))
+
+        def whole():
+            ee, dd = stag_hmc._fast3_ops(f)
+            return (dd if m is None else partial(ee, m=m)), None
+    return stag_shard.solve_route(None, f, False, m, whole)[0], example
 
 
 def stag_eigs(lat: Lattice, u: torch.Tensor | None, n: int, *,
@@ -84,8 +98,12 @@ def stag_eigs(lat: Lattice, u: torch.Tensor | None, n: int, *,
     ``links``: precomputed (fat, long) HISQ links; ``u`` may then be
     None.  ``refine_iters > 0`` follows the Lanczos with that many
     deflated inverse-iteration passes (``refine.refine_inverse_dev``).
-    ``m`` is the Lanczos basis size."""
+    ``m`` is the Lanczos basis size.  Inside ``parallel.mesh.use_mesh``
+    it runs on blocks (module docstring); every rank gets the same
+    eigenvalues."""
     from .refine import refine_inverse_dev
+    if refine_iters > 0 and pmesh.active() is not None:
+        raise ValueError("refine_iters runs on whole fields only")
     op, example = _normal_op(lat, u, bc, naik, links)
     evals, vecs, info = eigs_filtered(op, example, n, degree=degree,
                                       tol=tol, m=m,

@@ -21,6 +21,13 @@ Start vectors come from :func:`start_vector`, a complex gaussian drawn
 from a ``torch.Generator`` seeded with ``seed`` (the JAX package draws
 from ``PRNGKey(seed)``; the values differ, the distribution is the
 same).
+
+On a rank mesh's blocks (``parallel.mesh.use_mesh``) the vectors are
+this rank's blocks of fast-layout fields: the basis is a tensor of
+blocks, every dot and norm (the Gram-Schmidt coefficients included) is
+all-reduced (``parallel.halo.psum``), so the projected matrix read once
+a restart cycle is the same on every rank, and the start vector is drawn
+whole from the seeded generator on every rank and cut.
 """
 
 from __future__ import annotations
@@ -31,14 +38,24 @@ import numpy as np
 import torch
 
 from ..ops import linalg
+from ..parallel import mesh
+from ..parallel.halo import psum
 from ..rng import gaussian_complex
 
 
 def start_vector(example: torch.Tensor, seed: int) -> torch.Tensor:
     """Unnormalized complex gaussian like ``example`` (shape, dtype and
-    device), drawn from a generator seeded with ``seed``."""
+    device), drawn from a generator seeded with ``seed``; under an
+    active mesh ``example`` is a block of a fast-layout field, and the
+    draw is this rank's block of the whole one."""
     gen = torch.Generator(device=example.device).manual_seed(seed)
-    return gaussian_complex(gen, example.shape, example.dtype)
+    lm = mesh.active()
+    if lm is None:
+        return gaussian_complex(gen, example.shape, example.dtype)
+    X, Y, Z, T = lm.lat.dims
+    shape = tuple(example.shape[:-3]) + (T // 2, Z, Y * X)
+    return mesh.local_block(lm, gaussian_complex(gen, shape, example.dtype),
+                            "fast")
 
 
 def bind(op: Callable, op_args=()) -> Callable:
@@ -46,8 +63,23 @@ def bind(op: Callable, op_args=()) -> Callable:
     return (lambda v: op(v, *op_args)) if op_args else op
 
 
+def norm2(v: torch.Tensor) -> torch.Tensor:
+    """|v|^2 over the whole lattice (on blocks a float64 all-reduce)."""
+    if mesh.active() is None:
+        return linalg.norm2(v)
+    return psum(linalg.norm2(v, torch.float64)).to(v.real.dtype)
+
+
+def dot(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """<v, w> over the whole lattice (on blocks a complex128
+    all-reduce)."""
+    if mesh.active() is None:
+        return linalg.dot(v, w)
+    return psum(linalg.dot(v, w, torch.complex128)).to(v.dtype)
+
+
 def _normalize(v: torch.Tensor):
-    n = torch.sqrt(linalg.norm2(v))
+    n = torch.sqrt(norm2(v))
     return v / n, n
 
 
@@ -64,6 +96,8 @@ def gs_pass(rows: torch.Tensor, w: torch.Tensor):
     as two matrix-vector products."""
     flat = rows.reshape(rows.shape[0], -1)
     c = torch.mv(flat, w.reshape(-1).conj()).conj()
+    if mesh.active() is not None:
+        c = psum(c.to(torch.complex128)).to(c.dtype)
     return w - torch.mv(flat.T, c).reshape(w.shape), c
 
 
@@ -77,10 +111,10 @@ def lanczos_hermitian(op: Callable, v0: torch.Tensor, m: int
     alphas, betas = [], []
     for j in range(m):
         w = op(vs[-1])
-        alphas.append(float(linalg.dot(vs[-1], w).real))
+        alphas.append(float(dot(vs[-1], w).real))
         for _ in range(2):          # full reorthogonalization, 2 GS passes
             for vi in vs:
-                w = w - linalg.dot(vi, w) * vi
+                w = w - dot(vi, w) * vi
         w, b = _normalize(w)
         if j < m - 1:
             betas.append(float(b))
@@ -132,7 +166,7 @@ def eigs_hermitian_dev(op: Callable, example: torch.Tensor, n_eigs: int,
             col = c.real.to(rdt)
             tt[:j + 1, j] = col
             tt[j, :j + 1] = col
-            b = torch.sqrt(linalg.norm2(w)) + 1e-300
+            b = torch.sqrt(norm2(w)) + 1e-300
             bb[j + 1] = w / b
             tt[j + 1, j] = tt[j, j + 1] = b
         info["matvecs"] += m - k0

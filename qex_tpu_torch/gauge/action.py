@@ -7,7 +7,8 @@ adjoint-plaquette mix (QEX ``actionA``).
     S_A(U) = c.plaq (a0 - sum retr(P)/nc)
              + c.adjplaq (a0 - sum |tr P|^2/nc^2),  a0 = nd(nd-1)/2 V
 
-Global sums accumulate in float64.  The forces of the plaquette and
+Global sums accumulate in float64 (on a rank mesh's blocks, a block
+sum all-reduced: ``parallel.halo.psum``).  The forces of the plaquette and
 adjoint-plaquette parts come from hand staple sums; the rect and pgm
 remainder is differentiated by ``torch.func.grad``, so the whole force
 also has a forward-mode derivative (the exact force-gradient kick).
@@ -30,7 +31,8 @@ import torch
 
 from ..lattice import Lattice
 from ..ops import group, linalg
-from ..ops.shifts import transport
+from ..ops.shifts import shift, transport
+from ..parallel.halo import psum, site_sum
 
 C1_SYMANZIK = -1.0 / 12.0  # tree-level Luscher-Weisz
 C1_IWASAKI = -0.331
@@ -117,7 +119,7 @@ def gauge_action(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
                             (T[mu](Td[nu](u[sg])), T[sg](Td[nu](u[mu]))),
                             (T[mu](Td[sg](u[nu])), T[nu](Td[sg](u[mu])))):
                         pg = pg + rd(a, b)
-    return (-1.0 / nc) * (c.plaq * pl + c.rect * rt + c.pgm * pg)
+    return psum((-1.0 / nc) * (c.plaq * pl + c.rect * rt + c.pgm * pg))
 
 
 def action_a(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
@@ -131,9 +133,8 @@ def action_a(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
             a = transport(u[mu], u[nu], mu, +1, nd)   # U_mu(x) U_nu(x+mu)
             b = transport(u[nu], u[mu], nu, +1, nd)   # U_nu(x) U_mu(x+nu)
             trp = linalg.trace(linalg.mul_an(a, b))   # tr P^dag per site
-            pl = pl + torch.sum(trp.real, dtype=torch.float64)
-            ad = ad + torch.sum(trp.real ** 2 + trp.imag ** 2,
-                                dtype=torch.float64)
+            pl = pl + site_sum(trp.real)
+            ad = ad + site_sum(trp.real ** 2 + trp.imag ** 2)
     a0 = 0.5 * nd * (nd - 1) * lat.volume
     return (c.plaq * (a0 - pl / nc)
             + c.adjplaq * (a0 - ad / (nc * nc)))
@@ -169,7 +170,7 @@ def _staple_sums(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
     nd, nc = lat.nd, lat.nc
 
     def sh(f, mu):
-        return torch.roll(f, -1, f.dim() - nd + mu)
+        return shift(f, mu, +1, nd)
 
     su = [[sh(u[a], b) if a != b else None for b in range(nd)]
           for a in range(nd)]
@@ -190,7 +191,7 @@ def _staple_sums(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
                 w = (t[mu][nu] * t[nu][mu].conj()).sum((0, 1)).conj()
                 s1 = cp * s1 + ca * (w * s1)
                 inner = cp * inner + ca * (w.conj() * inner)
-            term = s1 + torch.roll(inner, 1, inner.dim() - nd + nu)
+            term = s1 + shift(inner, nu, -1, nd)
             acc = term if acc is None else acc + term
         sig.append(acc if ca != 0.0 else cp * acc)
     return sig

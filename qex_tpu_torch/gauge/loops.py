@@ -1,7 +1,8 @@
 """Gauge loop observables (port of ``qex_tpu.gauge.loops``): plaquette,
 Polyakov loop, Wilson lines, the clover field strength, the energy
 density in two discretisations and the topological charge.  Site sums
-accumulate in float64."""
+accumulate in float64, all-reduced over the ranks on a rank mesh's
+blocks (``parallel.halo.site_sum``)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import torch
 from ..lattice import Lattice
 from ..ops import linalg
 from ..ops.shifts import shift
+from ..parallel import mesh
+from ..parallel.halo import psum, site_sum
 
 
 def plaq_field(u: torch.Tensor, mu: int, nu: int, nd: int) -> torch.Tensor:
@@ -31,9 +34,8 @@ def plaquette(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
     nplanes = nd * (nd - 1) // 2
     for mu in range(nd):
         for nu in range(mu + 1, nd):
-            total = total + torch.sum(
-                linalg.re_trace(plaq_field(u, mu, nu, nd)),
-                dtype=torch.float64)
+            total = total + site_sum(
+                linalg.re_trace(plaq_field(u, mu, nu, nd)))
     return total / (nplanes * nc * lat.volume)
 
 
@@ -42,9 +44,8 @@ def plaquette_by_plane(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
     the order (0,1),(0,2),(1,2),(0,3),... (spatial planes first)."""
     nd, nc = lat.nd, lat.nc
     return torch.stack([
-        torch.sum(linalg.re_trace(plaq_field(u, mu, nu, nd)),
-                  dtype=torch.float64) / (nc * lat.volume)
-        for nu in range(1, nd) for mu in range(nu)])
+        site_sum(linalg.re_trace(plaq_field(u, mu, nu, nd)))
+        / (nc * lat.volume) for nu in range(1, nd) for mu in range(nu)])
 
 
 def polyakov_loop(lat: Lattice, u: torch.Tensor, mu: int | None = None
@@ -56,6 +57,9 @@ def polyakov_loop(lat: Lattice, u: torch.Tensor, mu: int | None = None
     nd, nc = lat.nd, lat.nc
     if mu is None:
         mu = nd - 1
+    lm = mesh.active()
+    if lm is not None and lm.rank_geom[mu] > 1:
+        return _polyakov_split(lm, lat, u, mu)
     length = lat.dims[mu]
     p = u[mu]
     if (length & (length - 1)) == 0:
@@ -66,8 +70,32 @@ def polyakov_loop(lat: Lattice, u: torch.Tensor, mu: int | None = None
     else:
         for k in range(1, length):
             p = linalg.mul(p, shift(u[mu], mu, +1, nd, dist=k))
-    return torch.sum(linalg.trace(p), dtype=torch.complex128) / (
-        nc * lat.volume)
+    return site_sum(linalg.trace(p), torch.complex128) / (nc * lat.volume)
+
+
+def _polyakov_split(lm, lat: Lattice, u: torch.Tensor, mu: int
+                    ) -> torch.Tensor:
+    """:func:`polyakov_loop` with direction mu split over the ranks:
+    each rank's ordered product of its block's links along mu, the
+    products of one line of ranks multiplied in rank order, traced at
+    the line's first rank (the trace is cyclic, so every base point on
+    a line gives it)."""
+    nd, nc = lat.nd, lat.nc
+    axis = u[mu].dim() - nd + mu
+    p = u[mu].select(axis, 0)
+    for k in range(1, u.shape[u.dim() - nd + mu]):
+        p = linalg.mul(p, u[mu].select(axis, k))
+    parts = lm.all_gather(p.contiguous())
+    here = list(lm.coords)
+    line = None
+    for c in range(lm.rank_geom[mu]):
+        here[mu] = c
+        q = parts[lm.rank_of(here)]
+        line = q if line is None else linalg.mul(line, q)
+    first = torch.sum(linalg.trace(line), dtype=torch.complex128)
+    if lm.coords[mu] != 0:
+        first = torch.zeros_like(first)
+    return psum(first * lat.dims[mu]) / (nc * lat.volume)
 
 
 def wilson_line(lat: Lattice, u: torch.Tensor, path, engine=None
@@ -104,7 +132,7 @@ def energy_density_clover(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
         for nu in range(mu + 1, nd):
             f = clover_fmunu(u, mu, nu, nd, engine=eng)
             total = total + linalg.norm2(f, dtype=torch.float64)
-    return total / lat.volume
+    return psum(total) / lat.volume
 
 
 def energy_density_plaq(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
@@ -114,9 +142,8 @@ def energy_density_plaq(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
     total = 0.0
     for mu in range(nd):
         for nu in range(mu + 1, nd):
-            total = total + torch.sum(
-                nc - linalg.re_trace(plaq_field(u, mu, nu, nd)),
-                dtype=torch.float64)
+            total = total + site_sum(
+                nc - linalg.re_trace(plaq_field(u, mu, nu, nd)))
     return 2.0 * total / lat.volume
 
 
@@ -134,8 +161,7 @@ def topo_charge_clover(lat: Lattice, u: torch.Tensor) -> torch.Tensor:
           for mu in range(nd) for nu in range(mu + 1, nd)}
 
     def tr_ff(a, b):
-        return torch.sum(linalg.re_trace(linalg.mul(fs[a], fs[b])),
-                         dtype=torch.float64)
+        return site_sum(linalg.re_trace(linalg.mul(fs[a], fs[b])))
 
     q = tr_ff((0, 1), (2, 3)) - tr_ff((0, 2), (1, 3)) + tr_ff((0, 3), (1, 2))
     return q / (4.0 * math.pi ** 2)

@@ -21,6 +21,7 @@ import torch
 from ..lattice import Lattice
 from ..ops import linalg
 from ..ops.shifts import shift
+from ..parallel.halo import site_sum
 
 
 def path_displacement(path: tuple[int, ...], nd: int) -> tuple[int, ...]:
@@ -70,7 +71,7 @@ class PathEngine:
             n = self.lat.nc
             ident = torch.eye(n, dtype=self.u.dtype, device=self.u.device)
             return ident.reshape((n, n) + (1,) * self.lat.nd).expand(
-                (n, n) + self.lat.dims)
+                (n, n) + tuple(self.u.shape[-self.lat.nd:]))
         if path in self._lines:
             return self._lines[path]
         if len(path) == 1:
@@ -93,7 +94,7 @@ class PathEngine:
         """Volume-averaged Re tr / nc of the (closed or open) line, a
         float64 scalar."""
         w = self.line(path)
-        return (torch.sum(linalg.re_trace(w), dtype=torch.float64)
+        return (site_sum(linalg.re_trace(w))
                 / (self.lat.nc * self.lat.volume))
 
     def rect_path(self, mu: int, nu: int, r: int, t: int

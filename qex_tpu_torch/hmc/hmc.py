@@ -8,6 +8,13 @@ from one ``torch.Generator``.  The pieces are public so a caller can
 inject its own draws: ``draw_momenta(gen, u)``, then
 ``hmc_step_from(u, p, r, ...)`` (integration, H and ``metropolis``).
 H and dH are float64 sums.
+
+On a rank mesh's blocks (``parallel.mesh.use_mesh``) u and p are this
+rank's blocks: the momenta are drawn whole on every rank from the same
+generator and cut (a transient whole field, about 0.6 GB of complex64
+momenta at 32^3x64), the sums are float64 all-reduces, and the
+Metropolis uniform is drawn on every rank, so every rank takes the same
+decision; ``gauge_update_u`` is site-local.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops import group, linalg
+from ..parallel import mesh
+from ..parallel.halo import psum
 from .integrators import Integrator, integrate
 
 
@@ -43,15 +52,17 @@ def gauge_update_u(u: torch.Tensor, p: torch.Tensor, eps: float
 
 def kinetic_energy(p: torch.Tensor) -> torch.Tensor:
     """K = -1/2 sum_mu retr(p^2) = 1/2 |p|^2, accumulated in float64."""
-    return 0.5 * linalg.norm2(p, dtype=torch.float64)
+    return 0.5 * psum(linalg.norm2(p, dtype=torch.float64))
 
 
 def draw_momenta(gen: torch.Generator, u: torch.Tensor) -> torch.Tensor:
     """Gaussian TAH momenta, one field per direction, on ``gen``'s
-    device."""
+    device (under an active mesh this rank's block of the whole draw)."""
     nd, nc = u.shape[0], u.shape[1]
-    return torch.stack([group.random_tah(gen, u.shape[3:], nc, u.dtype)
-                        for _ in range(nd)])
+    lm = mesh.active()
+    dims = u.shape[3:] if lm is None else tuple(lm.lat.dims)
+    return mesh.cut(torch.stack([group.random_tah(gen, dims, nc, u.dtype)
+                                 for _ in range(nd)]))
 
 
 def draw_uniform(gen: torch.Generator) -> float:
@@ -135,7 +146,8 @@ def check_reverse(u: torch.Tensor, p: torch.Tensor,
     u2, p2 = integrate(scheme, u1, -p1, tau, nsteps, force_fn,
                        gauge_update_u)
     h2 = _h(action_fn, u2, p2)
-    n2 = linalg.norm2
+    def n2(x, dtype):
+        return psum(linalg.norm2(x, dtype))
     return {"dH_fwd": h1 - h0, "dH_rev": h2 - h0,
             "u_dev2": float(n2(u2 - u, torch.float64)
                             / n2(u, torch.float64)),

@@ -56,8 +56,9 @@ def theory_from_json(src: str | dict
     ``serial_seed``, ``parallel_seed``, ``start``, ``flow`` and
     ``mesh``: the ``parallel.mesh.LatticeMesh`` of the deck's
     ``mpi-geometry`` over the default process group (which must hold
-    that many ranks), else None.  With a mesh the staggered and HISQ
-    solves run on its blocks (``SolverParams.mesh``)."""
+    that many ranks), else None.  With a mesh the theory is
+    block-resident (``mcmc.theory``): its methods take and return this
+    rank's block of the links (``SolverParams.mesh``)."""
     if isinstance(src, str):
         with open(src) as f:
             cfg = json.load(f)

@@ -13,11 +13,22 @@ and so may gauge terms (``GaugeActionSpec.smeared``).  Eager torch would
 redo the smear for every term, so ``hamiltonian``, ``heatbath`` and
 ``solver_report`` smear U once for all smeared terms, and the MD kicks
 of one time share one smear forward and one pullback (``mcmc.md``).
+
+With a rank mesh (``SolverParams.mesh``; the app's ``-rank_geom``, a
+deck's ``mpi-geometry``) the theory is block-resident: every method
+takes and returns this rank's block of the links (and of the momenta
+and pseudofermions), runs inside ``parallel.mesh.use_mesh`` so that
+every shift exchanges faces and every sum is a float64 all-reduce, and
+draws each noise field whole from the same generator on every rank
+before cutting its block, so that a run on blocks reproduces a run
+without a mesh; H and the Metropolis uniform are the same on every
+rank, and so is the decision.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Sequence
 
 import torch
@@ -28,6 +39,8 @@ from ..gauge.smear import HypCoefs, StoutCoefs, nhyp_smear, stout_smear
 from ..hmc import hmc as hmc_mod
 from ..lattice import Lattice
 from ..ops import linalg
+from ..parallel.halo import psum
+from ..parallel.mesh import use_mesh
 from ..physics import stag_hmc
 from ..solvers.base import SolverParams
 from .md import ActionTerm, run_trajectory
@@ -64,6 +77,15 @@ class FermionSpec:
     hmasses: tuple = ()
 
 
+def _on_mesh(method):
+    """Run ``method`` on the theory's rank mesh (``use_mesh``)."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with use_mesh(self.mesh):
+            return method(self, *args, **kw)
+    return run
+
+
 def _grad_at(action: Callable[[torch.Tensor], torch.Tensor],
              v: torch.Tensor) -> torch.Tensor:
     """torch-convention gradient of a real action at links v."""
@@ -71,6 +93,10 @@ def _grad_at(action: Callable[[torch.Tensor], torch.Tensor],
         vv = v.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(action(vv), vv)
     return g
+
+
+def _n2(x: torch.Tensor) -> torch.Tensor:
+    return psum(linalg.norm2(x, torch.float64))
 
 
 class LatticeFieldTheory:
@@ -96,6 +122,7 @@ class LatticeFieldTheory:
         self.smear_coefs = smear
         self.bc = bc
         self.solver_params = solver_params
+        self.mesh = solver_params.mesh
         self.force_solver_params = force_solver_params
         self.tau = tau
         self.matter_bases: list[tuple[str, Any, bool]] = []
@@ -217,14 +244,19 @@ class LatticeFieldTheory:
         return [v if t.smeared else u for t in self.terms]
 
     # -- HMC ---------------------------------------------------------------
-    draw_momenta = staticmethod(hmc_mod.draw_momenta)
+    @_on_mesh
+    def draw_momenta(self, gen: torch.Generator, u: torch.Tensor
+                     ) -> torch.Tensor:
+        return hmc_mod.draw_momenta(gen, u)
 
+    @_on_mesh
     def draw_noise(self, gen: torch.Generator, u: torch.Tensor
                    ) -> list[torch.Tensor | None]:
         """One Gaussian noise field per matter term (None for gauge)."""
         return [stag_hmc.gaussian_eta(gen, self.lat, u.dtype)
                 if term.heatbath else None for term in self.terms]
 
+    @_on_mesh
     def heatbath_from_noise(self, xis: Sequence[torch.Tensor | None],
                             u: torch.Tensor) -> list[Any]:
         """Pseudofermion fields from the terms' noise fields (one smear
@@ -235,10 +267,12 @@ class LatticeFieldTheory:
                     for (_act, heat), w, xi in zip(self._at_links, links,
                                                    xis)]
 
+    @_on_mesh
     def heatbath(self, gen: torch.Generator, u: torch.Tensor) -> list[Any]:
         """Refresh all pseudofermion fields."""
         return self.heatbath_from_noise(self.draw_noise(gen, u), u)
 
+    @_on_mesh
     def hamiltonian(self, u: torch.Tensor, p: torch.Tensor,
                     phis: Sequence[Any]) -> torch.Tensor:
         """H = K(p) + sum of the terms' actions, a float64 scalar (one
@@ -250,6 +284,7 @@ class LatticeFieldTheory:
                 h = h + act(w, phi).to(torch.float64)
         return h
 
+    @_on_mesh
     def trajectory(self, u: torch.Tensor, p: torch.Tensor,
                    phis: Sequence[Any]) -> tuple[torch.Tensor, torch.Tensor]:
         """MD trajectory of length tau from (u, p): returns (u1, p1)."""
@@ -260,6 +295,7 @@ class LatticeFieldTheory:
 
     metropolis = staticmethod(hmc_mod.metropolis)
 
+    @_on_mesh
     def hmc_step(self, gen: torch.Generator, u: torch.Tensor,
                  always_accept: bool = False
                  ) -> tuple[torch.Tensor, hmc_mod.HMCState]:
@@ -276,6 +312,7 @@ class LatticeFieldTheory:
         return (u1 if acc else u), hmc_mod.HMCState(
             accepted=acc, dH=dH, h_old=h_old, h_new=h_new)
 
+    @_on_mesh
     def reverse_check(self, gen: torch.Generator, u: torch.Tensor) -> dict:
         """Reversibility of the full multi-timescale trajectory: draw as
         ``hmc_step`` does, integrate, flip the momenta, integrate back;
@@ -290,11 +327,10 @@ class LatticeFieldTheory:
         h2 = float(self.hamiltonian(u2, p2, phis))
         return {"h0": h0, "h1": h1, "h2": h2, "dH_fwd": h1 - h0,
                 "dH_rev": h2 - h0,
-                "u_dev2": float(linalg.norm2(u2 - u, torch.float64)
-                                / linalg.norm2(u, torch.float64)),
-                "p_dev2": float(linalg.norm2(p2 + p, torch.float64)
-                                / linalg.norm2(p, torch.float64))}
+                "u_dev2": float(_n2(u2 - u) / _n2(u)),
+                "p_dev2": float(_n2(p2 + p) / _n2(p))}
 
+    @_on_mesh
     def solver_report(self, gen: torch.Generator, u: torch.Tensor) -> dict:
         """Per matter term with a ``check_solve``: heatbath a phi from
         ``gen``, re-solve at the action tolerance, and report

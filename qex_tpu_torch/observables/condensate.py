@@ -14,6 +14,8 @@ import torch
 from ..device import resolve
 from ..lattice import Lattice
 from ..ops import linalg
+from ..parallel import mesh
+from ..parallel.halo import psum
 from ..physics import stag_solve
 from ..physics import staggered as st
 from ..rng import gaussian_complex, u1_noise, z2_noise, z4_noise
@@ -65,16 +67,20 @@ def pbp_staggered(gen: torch.Generator | None, lat: Lattice, u: torch.Tensor,
     for links on the card).
 
     The n_noise noise vectors of kind ``noise`` are drawn from ``gen``
-    (on u's device), or given as ``noises`` (n_noise, nc, *dims)."""
+    (on u's device), or given as ``noises`` (n_noise, nc, *dims).  On
+    the active rank mesh's blocks (``parallel.mesh.use_mesh``) the
+    noises and masks are drawn whole and cut, the solves run on the
+    blocks and the sum is all-reduced."""
     s = st.new_stag_eo(lat, u, bc)
     if noises is None:
         noises = [NOISES[noise](gen, lat.vector_shape(), u.dtype)
                   for _ in range(n_noise)]
-    masks = dilution_masks(lat, dilution, u.device)
+    noises = [mesh.cut(eta) for eta in noises]
+    masks = [mesh.cut(mk) for mk in dilution_masks(lat, dilution, u.device)]
     total = torch.zeros((), dtype=torch.float64, device=u.device)
     for eta in noises:
         for msk in masks:
             eta_d = eta * msk
             x, _ = stag_solve.solve(s, eta_d, m, params)
             total = total + linalg.dot(eta_d, x, torch.complex128).real
-    return float(total) / (len(noises) * lat.volume)
+    return float(psum(total)) / (len(noises) * lat.volume)

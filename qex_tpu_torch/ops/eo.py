@@ -5,12 +5,16 @@ A packed field is a pair ``(even, odd)`` with the t extent halved:
 ``packed_P[..., x, y, z, th] = full[..., x, y, z, 2*th + s]`` with
 ``s = (P + x + y + z) mod 2`` and site parity ``P = (x+y+z+t) mod 2``.
 x/y/z shifts are plain rolls of the opposite-parity array; t shifts
-select between two rolls by ``s`` of the output site.
+select between two rolls by ``s`` of the output site.  On a rank mesh's
+blocks (even local extents, so a block's parities are the global ones)
+the rolls exchange faces (``ops.shifts.roll``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .shifts import roll
 
 
 def _s_mask(dims: tuple[int, ...], parity: int,
@@ -60,16 +64,16 @@ def shift_eo(f_src: torch.Tensor, mu: int, sign: int, parity_out: int,
         raise ValueError("dist must be positive; flip sign instead")
     axis = f_src.dim() - nd + mu
     if mu != nd - 1:
-        return torch.roll(f_src, -sign * dist, axis)
+        return roll(f_src, sign * dist, axis, mu)
     dims_h = tuple(f_src.shape[-nd:])
     if dist % 2 == 0:
-        return torch.roll(f_src, -sign * (dist // 2), axis)
+        return roll(f_src, sign * (dist // 2), axis, mu)
     # odd t shift: th' = th + (dist-1)/2 + s (forward),
     #              th' = th - (dist+1)/2 + s (backward)
     s = _s_mask(dims_h, parity_out, f_src.device)
     if sign > 0:
-        base = torch.roll(f_src, -((dist - 1) // 2), axis)
+        base = roll(f_src, (dist - 1) // 2, axis, mu)
     else:
-        base = torch.roll(f_src, (dist + 1) // 2, axis)
-    extra = torch.roll(base, -1, axis)
+        base = roll(f_src, -((dist + 1) // 2), axis, mu)
+    extra = roll(base, 1, axis, mu)
     return torch.where(s, extra, base)

@@ -3,13 +3,28 @@
 
 Sign convention: ``shift(f, mu, +1)[x] = f[x + mu]``, i.e. pull from the
 forward neighbour, which is ``torch.roll(f, -1, axis)``.
+
+Under an active rank mesh (``parallel.mesh.use_mesh``) ``f`` is this
+rank's block and a shift along a split direction exchanges its face
+(``parallel.halo.roll_halo``, differentiable).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import halo, mesh
 from . import linalg
+
+
+def roll(f: torch.Tensor, k: int, axis: int, mu: int) -> torch.Tensor:
+    """result[i] = f[i + k] along tensor ``axis``, which runs along
+    lattice direction mu: ``torch.roll(f, -k, axis)``, or its halo
+    exchanging twin on the active mesh's blocks."""
+    lm = mesh.active()
+    if lm is None:
+        return torch.roll(f, -k, axis)
+    return halo.roll_halo(lm, f, mu, k, axis)
 
 
 def shift(f: torch.Tensor, mu: int, sign: int, nd: int | None = None,
@@ -17,8 +32,7 @@ def shift(f: torch.Tensor, mu: int, sign: int, nd: int | None = None,
     """Shifted field: result[x] = f[x + sign*dist*mu_hat] (periodic)."""
     if nd is None:
         nd = 4
-    axis = f.dim() - nd + mu
-    return torch.roll(f, -sign * dist, axis)
+    return roll(f, sign * dist, f.dim() - nd + mu, mu)
 
 
 def transport(u_mu: torch.Tensor, f: torch.Tensor, mu: int, sign: int,

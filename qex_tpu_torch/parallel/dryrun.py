@@ -7,8 +7,9 @@ It starts N ranks (``torch.multiprocessing``; under ``torchrun`` each
 process is one rank already) and on each runs :func:`body`:
 
 1. one HMC step of gauge (Wilson beta 5.5) + staggered fermion (m 0.5)
-   + Pauli-Villars boson (m 0.75) at 8^4, its solves on the rank mesh
-   (``SolverParams.mesh``);
+   + Pauli-Villars boson (m 0.75) at 8^4, block-resident on the rank
+   mesh (``SolverParams.mesh``: each rank holds its block of every
+   field);
 2. the block kernel path (``physics.stag_shard``) on a z/t mesh: the
    sharded d2ee against the unsplit operator on the same links;
 3. BASELINE config 5 shrunk to 8^3x16: HISQ fattening, then the 4-mass
@@ -60,7 +61,8 @@ def body(device, nranks: int, dims=DIMS, dims5=DIMS5, pg=None) -> dict:
     from qex_tpu_torch.mcmc.theory import (FermionSpec, GaugeActionSpec,
                                            LatticeFieldTheory)
     from qex_tpu_torch.ops import group, linalg
-    from qex_tpu_torch.parallel.mesh import make_lattice_mesh
+    from qex_tpu_torch.parallel.mesh import (gather_field, local_block,
+                                             make_lattice_mesh, use_mesh)
     from qex_tpu_torch.physics import stag_fast as sf
     from qex_tpu_torch.physics import stag_shard as shd
     from qex_tpu_torch.physics import staggered as st
@@ -93,15 +95,16 @@ def body(device, nranks: int, dims=DIMS, dims5=DIMS5, pg=None) -> dict:
                                    mesh=lm),
         tau=0.2)
     u = links(lat, 0)
-    u1, state = theory.hmc_step(seeded_generator(dev, 1), u)
-    out.update(rank_geom=list(geom), dH=state.dH,
-               plaquette=float(loops.plaquette(lat, u1)))
+    u1, state = theory.hmc_step(seeded_generator(dev, 1), local_block(lm, u))
+    with use_mesh(lm):
+        plaq = float(loops.plaquette(lat, u1))
+    out.update(rank_geom=list(geom), dH=state.dH, plaquette=plaq)
     if not torch.isfinite(torch.tensor(state.dH)):
         raise AssertionError(f"dry run: dH {state.dH}")
 
     # the block kernel path against the unsplit operator on the same links
     fs = sf.new_fast(st.new_stag_eo(lat, u))
-    ee, _ = shd.ops8(lm, fs)
+    ee, _ = shd.ops8(lm, shd.block_of(lm, fs))
     gen = seeded_generator(dev, 2)
     X, Y, Z, T = lat.dims
     x = torch.randn((3, T // 2, Z, Y * X), dtype=dtype, generator=gen,
@@ -128,9 +131,12 @@ def body(device, nranks: int, dims=DIMS, dims5=DIMS5, pg=None) -> dict:
                      dtype=dtype, generator=seeded_generator(dev, 6),
                      device=dev)
     xs5, stats5 = shd.solve_multi_sharded(
-        lm5, s35, b5, MASSES5, SolverParams(r2req=1e-10, maxits=400))
-    worst = max(float(linalg.norm2(st.d2ee3(s35, x5, m) - b5)
-                      / linalg.norm2(b5)) for m, x5 in zip(MASSES5, xs5))
+        lm5, shd.block_of(lm5, sf.new_fast3(s35)),
+        local_block(lm5, b5, "eo"), MASSES5,
+        SolverParams(r2req=1e-10, maxits=400))
+    worst = max(float(linalg.norm2(
+        st.d2ee3(s35, gather_field(lm5, x5, "eo"), m) - b5)
+        / linalg.norm2(b5)) for m, x5 in zip(MASSES5, xs5))
     out.update(config5_rank_geom=list(geom5),
                config5_iterations=stats5.iterations,
                config5_worst_true_r2=worst)

@@ -8,6 +8,22 @@ a local roll plus, along a split direction, one face exchange with the
 neighbouring ranks; a global sum is a float64 sum over the block
 all-reduced over the group, so that the sum's value does not depend on
 how the lattice is split beyond float64 rounding.
+
+Both are ``torch.autograd.Function``s in the ``setup_context`` form, so
+that autograd, ``torch.func.grad`` and ``torch.func.jvp`` pass them (a
+collective inside a plain function would meet the transforms' wrapped
+tensors).  The backward of a shift is the opposite shift of the
+gradient, made of the same Function, so it exchanges its own face and is
+itself differentiable (the exact force-gradient kick differentiates a
+force, and the solves' implicit backwards differentiate inside a
+backward); its jvp is the same shift of the tangent.  The backward of a
+global sum is the identity: each rank seeds its own partial sum with 1,
+and the backward exchanges of the shifts carry the neighbours' share of
+the gradient to the links they read (``torch.distributed.nn``'s
+all-reduce would all-reduce the gradient again, multiplying every force
+by the number of ranks).  Every rank enters each exchange and each sum
+in the same order, forward and backward: nothing here branches on data
+that one rank holds.
 """
 
 from __future__ import annotations
@@ -16,29 +32,117 @@ import torch
 
 from ..ops import linalg
 from ..solvers.base import Reductions
-from .mesh import LatticeMesh
+from .mesh import LatticeMesh, active
+
+
+def _roll_block(f: torch.Tensor, lm: LatticeMesh, mu: int, k: int,
+                axis: int) -> torch.Tensor:
+    """result[i] = f[i + k] along ``axis`` of the global field, on
+    blocks: a local roll whose wrapped |k| planes come from the
+    neighbour along mu (its first planes for k > 0, its last for k < 0)."""
+    rolled = torch.roll(f, -k, axis)
+    if k == 0 or lm.rank_geom[mu] == 1:
+        return rolled
+    n, d = f.shape[axis], abs(k)
+    if d > n:
+        raise ValueError(f"halo depth {d} > local extent {n} along "
+                         f"direction {mu}: a shift reaches only the "
+                         "neighbouring block")
+    if k > 0:
+        rolled.narrow(axis, n - d, d).copy_(
+            lm.exchange_one(mu, f.narrow(axis, 0, d), +1))
+    else:
+        rolled.narrow(axis, 0, d).copy_(
+            lm.exchange_one(mu, f.narrow(axis, n - d, d), -1))
+    return rolled
+
+
+class _Roll(torch.autograd.Function):
+    """:func:`_roll_block` with the opposite roll as its backward and
+    the same roll as its jvp (see the module docstring)."""
+
+    @staticmethod
+    def forward(f, lm, mu, k, axis):
+        return _roll_block(f, lm, mu, k, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _f, ctx.lm, ctx.mu, ctx.k, ctx.axis = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Roll.apply(g, ctx.lm, ctx.mu, -ctx.k, ctx.axis), \
+            None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, t, *_):
+        return _Roll.apply(t, ctx.lm, ctx.mu, ctx.k, ctx.axis)
+
+
+def roll_halo(lm: LatticeMesh, f: torch.Tensor, mu: int, k: int,
+              axis: int) -> torch.Tensor:
+    """result[i] = f[i + k] along tensor axis ``axis``, which runs along
+    lattice direction mu (in the full layout the mu-th lattice axis; in
+    the eo and fast layouts t is the packed axis), on this rank's blocks
+    of ``lm``; |k| may not exceed the local extent of a split axis.
+    Differentiable (module docstring)."""
+    if lm.rank_geom[mu] == 1:
+        return torch.roll(f, -k, axis)
+    return _Roll.apply(f, lm, mu, k, axis % f.dim())
 
 
 def shift_halo(lm: LatticeMesh, f: torch.Tensor, mu: int, sign: int,
                dist: int = 1) -> torch.Tensor:
-    """result[x] = f[x + sign*dist*mu_hat] globally, on blocks."""
-    nd = lm.lat.nd
-    axis = f.dim() - nd + mu
-    rolled = torch.roll(f, -sign * dist, axis)
-    if lm.rank_geom[mu] == 1 or dist == 0:
-        return rolled
-    n = f.shape[axis]
-    if dist >= n:
-        raise ValueError("halo depth >= local extent")
-    lo, hi = f.narrow(axis, 0, dist), f.narrow(axis, n - dist, dist)
-    # the wrapped planes come from the neighbour: its first planes for a
-    # forward shift, its last for a backward one
-    from_next, from_prev = lm.exchange_faces({mu: (lo, hi)})[mu]
-    if sign > 0:
-        rolled.narrow(axis, n - dist, dist).copy_(from_next)
-    else:
-        rolled.narrow(axis, 0, dist).copy_(from_prev)
-    return rolled
+    """result[x] = f[x + sign*dist*mu_hat] globally, on blocks (the full
+    layout); differentiable."""
+    return roll_halo(lm, f, mu, sign * dist, f.dim() - lm.lat.nd + mu)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the ranks of a per-rank partial sum; the backward is
+    the identity (module docstring)."""
+
+    @staticmethod
+    def forward(x, lm):
+        if x.is_complex():
+            return torch.view_as_complex(lm.all_reduce(torch.view_as_real(
+                x.resolve_conj().contiguous())))
+        return lm.all_reduce(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.lm = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _AllReduce.apply(t, ctx.lm)
+
+
+def global_sum(lm: LatticeMesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over this rank's block and all the others, in
+    float64 (complex128 for a complex ``x``); differentiable with
+    respect to the block (the gradient of the global sum)."""
+    dt = torch.complex128 if x.is_complex() else torch.float64
+    return _AllReduce.apply(torch.sum(x, dtype=dt), lm)
+
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """A per-rank partial sum (float64 or complex128) summed over the
+    ranks of the active mesh (``x`` itself with none)."""
+    lm = active()
+    if lm is None:
+        return x
+    return _AllReduce.apply(x, lm)
+
+
+def site_sum(x: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """``torch.sum(x, dtype=dtype)`` over the whole lattice: the block
+    sum all-reduced under an active mesh."""
+    return psum(torch.sum(x, dtype=dtype))
 
 
 def dslash_full_sharded(lm: LatticeMesh, g: torch.Tensor, x: torch.Tensor

@@ -11,6 +11,16 @@ geometry select, computes on it, and exchanges faces and global sums
 through the group (:class:`LatticeMesh`).  Site-tensor axes are never
 split; the lattice axes are, ``rank_geom[mu]`` ways along direction mu.
 
+A trajectory runs block-resident inside :func:`use_mesh`: there every
+lattice field is this rank's block, the shifts of ``ops.shifts``,
+``ops.eo`` and the kernels' link construction go through
+``parallel.halo``'s halo-exchanging shift, and site sums through its
+float64 all-reduce.  The lattice code keeps its signatures: a
+``Lattice`` argument stays the global lattice (volumes and global
+extents), and an operator built on a block carries the block's lattice
+(:func:`block_lattice`).  With no mesh active every function computes
+exactly what it computes without this module.
+
 Ranks are laid out in C order over the rank geometry (t fastest), as
 ``numpy.reshape`` lays out the JAX mesh's devices.  Where the group's
 backend is gloo and a tensor lies on a CUDA card, every exchange,
@@ -22,7 +32,9 @@ those staged transfers (copies included) and of the copies alone.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 import time
 from typing import Sequence
@@ -86,7 +98,7 @@ class LatticeMesh:
     def size(self) -> int:
         return math.prod(self.rank_geom)
 
-    @property
+    @functools.cached_property
     def coords(self) -> tuple[int, ...]:
         return tuple(int(c) for c in np.unravel_index(self.rank,
                                                       self.rank_geom))
@@ -98,13 +110,26 @@ class LatticeMesh:
 
     def neighbour(self, mu: int, sign: int) -> int:
         """Rank of the next (+1) or previous (-1) block along mu."""
-        c = list(self.coords)
-        c[mu] += sign
-        return self.rank_of(c)
+        return self._neighbours[mu, sign]
+
+    @functools.cached_property
+    def _neighbours(self) -> dict:
+        out = {}
+        for mu in range(len(self.rank_geom)):
+            for sign in (-1, 1):
+                c = list(self.coords)
+                c[mu] += sign
+                out[mu, sign] = self.rank_of(c)
+        return out
 
     @property
     def local_dims(self) -> tuple[int, ...]:
         return tuple(d // g for d, g in zip(self.lat.dims, self.rank_geom))
+
+    @property
+    def origin(self) -> tuple[int, ...]:
+        """Global coordinates of this block's first site."""
+        return tuple(c * n for c, n in zip(self.coords, self.local_dims))
 
     def block_slices(self, coords=None) -> tuple[slice, ...]:
         """Slices of the lattice axes (x, y, z, t) held by the rank at
@@ -176,6 +201,29 @@ class LatticeMesh:
             out[mu] = (recvs[2 * k], recvs[2 * k + 1])
         return out
 
+    def exchange_one(self, mu: int, face: torch.Tensor, sign: int
+                     ) -> torch.Tensor:
+        """One face exchange along a split direction mu: with sign +1
+        send ``face`` to the previous rank and return what the next rank
+        sent (its own first planes, for a forward shift); with sign -1
+        send it to the next rank and return the previous rank's."""
+        dev = face.device
+        (send,), staged = self._to_host(face.contiguous())
+        recv = torch.empty_like(send)
+        to, frm = ((self.neighbour(mu, -1), self.neighbour(mu, +1))
+                   if sign > 0 else
+                   (self.neighbour(mu, +1), self.neighbour(mu, -1)))
+        tag = 2 * mu + (sign > 0)
+        ops = [dist.P2POp(dist.isend, send, self._peer(to), self.group,
+                          tag=tag),
+               dist.P2POp(dist.irecv, recv, self._peer(frm), self.group,
+                          tag=tag)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        if staged is not None:
+            recv = self._back(dev, staged, recv)[0]
+        return recv
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of ``t`` over the ranks (``t`` itself on a one-rank mesh
         without a group)."""
@@ -205,6 +253,46 @@ class LatticeMesh:
             dist.barrier(group=self.group)
 
 
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(lm: LatticeMesh | None):
+    """Run the lattice code inside on ``lm``'s blocks (nothing changes
+    for ``lm`` None).  Every rank must enter the same code in the same
+    order: each shift across a split direction and each global sum is a
+    collective of the group."""
+    _ACTIVE.append(lm)
+    try:
+        yield lm
+    finally:
+        _ACTIVE.pop()
+
+
+def active() -> LatticeMesh | None:
+    """The mesh of the innermost :func:`use_mesh`, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def block_lattice(lat: Lattice) -> Lattice:
+    """The lattice of this rank's block of ``lat`` under the active
+    mesh (``lat`` itself with none, or where ``lat`` is not the mesh's
+    global lattice, as a block's own lattice is not)."""
+    lm = active()
+    if lm is None or tuple(lat.dims) != tuple(lm.lat.dims):
+        return lat
+    return Lattice(lm.local_dims, nc=lat.nc)
+
+
+def cut(f: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a whole field under the active mesh (``f``
+    itself with none): the seeded draws, which every rank makes whole
+    from the same generator and then cuts, so that a run on blocks
+    reproduces a run without a mesh."""
+    lm = active()
+    return f if lm is None else local_block(lm, f)
+
+
 def make_lattice_mesh(lat: Lattice, rank_geom: Sequence[int] | None = None,
                       group=None) -> LatticeMesh:
     """The mesh of ``lat`` over ``group`` (default: the default process
@@ -230,23 +318,42 @@ def make_lattice_mesh(lat: Lattice, rank_geom: Sequence[int] | None = None,
     return LatticeMesh(lat, rank_geom, rank, group, staged)
 
 
-def local_block(lm: LatticeMesh, f: torch.Tensor) -> torch.Tensor:
-    """This rank's block of a global field (site-tensor axes leading,
-    the lattice's nd axes trailing), contiguous."""
+def local_block(lm: LatticeMesh, f: torch.Tensor, layout: str = "full"
+                ) -> torch.Tensor:
+    """This rank's block of a global field, contiguous: ``layout``
+    "full" (site-tensor axes leading, the lattice's nd axes trailing),
+    "eo" (an eo-packed half, t halved) or "fast" (``stag_fast``'s
+    (..., Th, Z, Y*X), whose merged y and x stay whole: a z/t split)."""
     nd = lm.lat.nd
-    idx = (Ellipsis,) + lm.block_slices()
-    assert f.shape[f.dim() - nd:] == tuple(lm.lat.dims), f.shape
-    return f[idx].contiguous()
+    sl = lm.block_slices()
+    if layout == "fast":
+        X, Y, Z, T = lm.lat.dims
+        assert f.shape[-3:] == (T // 2, Z, Y * X), f.shape
+        return f[..., slice(sl[3].start // 2, sl[3].stop // 2), sl[2],
+                 :].contiguous()
+    dims = tuple(lm.lat.dims)
+    if layout == "eo":
+        dims = dims[:-1] + (dims[-1] // 2,)
+        sl = sl[:-1] + (slice(sl[-1].start // 2, sl[-1].stop // 2),)
+    elif layout != "full":
+        raise ValueError(f"unknown layout {layout!r}")
+    assert f.shape[f.dim() - nd:] == dims, f.shape
+    return f[(Ellipsis,) + sl].contiguous()
 
 
-def gather_field(lm: LatticeMesh, block: torch.Tensor) -> torch.Tensor:
+def gather_field(lm: LatticeMesh, block: torch.Tensor, layout: str = "full"
+                 ) -> torch.Tensor:
     """The global field from every rank's block (an all-gather), on
-    every rank."""
+    every rank; ``layout`` as :func:`local_block` ("full" or "eo")."""
     parts = lm.all_gather(block)
     nd = lm.lat.nd
-    out = block.new_empty(block.shape[:block.dim() - nd] + tuple(lm.lat.dims))
+    dims = tuple(lm.lat.dims)
+    if layout == "eo":
+        dims = dims[:-1] + (dims[-1] // 2,)
+    out = block.new_empty(block.shape[:block.dim() - nd] + dims)
     for r, part in enumerate(parts):
-        idx = (Ellipsis,) + lm.block_slices(
-            np.unravel_index(r, lm.rank_geom))
-        out[idx] = part
+        sl = lm.block_slices(np.unravel_index(r, lm.rank_geom))
+        if layout == "eo":
+            sl = sl[:-1] + (slice(sl[-1].start // 2, sl[-1].stop // 2),)
+        out[(Ellipsis,) + sl] = part
     return out

@@ -14,6 +14,7 @@ distance: 1 for the hopping term, 3 for the naik term.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -23,9 +24,12 @@ from . import staggered as st
 
 
 def to_fast(v: torch.Tensor, lat: Lattice) -> torch.Tensor:
-    """(..., X, Y, Z, Th) -> (..., Th, Z, Y*X), contiguous."""
-    X, Y, Z = lat.dims[0], lat.dims[1], lat.dims[2]
+    """(..., X, Y, Z, Th) -> (..., Th, Z, Y*X), contiguous (Z and Th
+    from ``v``, so that a block of a z/t-split mesh converts with the
+    global ``lat``)."""
+    X, Y = lat.dims[0], lat.dims[1]
     nlead = v.dim() - 4
+    Z = v.shape[nlead + 2]
     perm = tuple(range(nlead)) + (nlead + 3, nlead + 2, nlead + 1, nlead)
     vt = v.permute(perm)
     return vt.reshape(vt.shape[:nlead] + (vt.shape[nlead], Z, Y * X)
@@ -59,19 +63,59 @@ def new_fast(s: st.StaggeredEO) -> FastStagEO:
 
 
 def _coords(lat: Lattice, device):
-    """(x, y, z) coordinate fields of shape (Z, Y*X)."""
+    """(x, y, z) coordinate fields of shape (Z, Y*X), read-only: the
+    host's are made once per lattice and shared (on the host this index
+    arithmetic is a large share of a small block's hop)."""
     X, Y, Z = lat.dims[0], lat.dims[1], lat.dims[2]
+    if torch.device(device).type == "cpu":
+        return _host_coords(X, Y, Z)
+    return _coords_on(X, Y, Z, device)
+
+
+def _coords_on(X: int, Y: int, Z: int, device):
     yx = torch.arange(Y * X, device=device).reshape(1, Y * X)
     zg = torch.arange(Z, device=device).reshape(Z, 1)
     return yx % X, yx // X, zg
 
 
+@functools.lru_cache(maxsize=None)
+def _host_coords(X: int, Y: int, Z: int):
+    return _coords_on(X, Y, Z, "cpu")
+
+
+def odd_t(lat: Lattice, parity: int, device) -> torch.Tensor:
+    """(Z, Y*X) mask of the sites of parity ``parity`` whose global t is
+    odd, ``(parity + x + y + z) % 2 == 1``: where the fast layout's t
+    shifts move the packed t axis (read-only, as :func:`_coords`)."""
+    X, Y, Z = lat.dims[0], lat.dims[1], lat.dims[2]
+    if torch.device(device).type == "cpu":
+        return _host_odd_t(X, Y, Z, parity)
+    xg, yg, zg = _coords_on(X, Y, Z, device)
+    return ((parity + xg + yg + zg) % 2) == 1
+
+
+@functools.lru_cache(maxsize=None)
+def _host_odd_t(X: int, Y: int, Z: int, parity: int) -> torch.Tensor:
+    xg, yg, zg = _host_coords(X, Y, Z)
+    return ((parity + xg + yg + zg) % 2) == 1
+
+
 def shift_fast(f: torch.Tensor, mu: int, sign: int, parity_out: int,
-               lat: Lattice, dist: int = 1) -> torch.Tensor:
+               lat: Lattice, dist: int = 1, lm=None) -> torch.Tensor:
     """Odd-distance eo shift in the fast layout onto ``parity_out``
-    (dist=1 hopping, dist=3 naik)."""
+    (dist=1 hopping, dist=3 naik).  ``lat`` is the lattice of ``f``'s
+    sites; with a rank mesh ``lm`` (z/t split) ``f`` is its block and
+    the z and t rolls exchange faces (``parallel.halo.roll_halo``), else
+    every roll wraps the block locally (the kernels' twins)."""
     X = lat.dims[0]
     d = dist
+
+    def roll(g, k, axis, mu):       # torch.roll(g, k, axis) globally
+        if lm is None:
+            return torch.roll(g, k, axis)
+        from ..parallel.halo import roll_halo
+        return roll_halo(lm, g, mu, -k, axis)
+
     if mu == 0:       # x: roll of Y*X plus the boundary-column wrap
         xg, _, _ = _coords(lat, f.device)
         if sign > 0:
@@ -84,21 +128,20 @@ def shift_fast(f: torch.Tensor, mu: int, sign: int, parity_out: int,
     if mu == 1:       # y: roll of the (y, x) axis by d*X
         return torch.roll(f, -sign * d * X, -1)
     if mu == 2:       # z
-        return torch.roll(f, -sign * d, -2)
+        return roll(f, -sign * d, -2, 2)
     # t: global t = 2*th + b with b = (parity + x + y + z) % 2; t + sign*d
     # lands at th + sign*(d+1)/2 where b == 1 (forward) or b == 0
     # (backward), else at th + sign*(d-1)/2
     if d % 2 != 1:
         raise ValueError("fast t-shift supports odd distances only")
-    xg, yg, zg = _coords(lat, f.device)
-    s = ((parity_out + xg + yg + zg) % 2).bool()
+    s = odd_t(lat, parity_out, f.device)
     lo, hi = (d - 1) // 2, (d + 1) // 2
     if sign > 0:
-        base = f if lo == 0 else torch.roll(f, -lo, -3)
-        extra = torch.roll(f, -hi, -3)
+        base = f if lo == 0 else roll(f, -lo, -3, 3)
+        extra = roll(f, -hi, -3, 3)
     else:
-        base = torch.roll(f, hi, -3)
-        extra = f if lo == 0 else torch.roll(f, lo, -3)
+        base = roll(f, hi, -3, 3)
+        extra = f if lo == 0 else roll(f, lo, -3, 3)
     return torch.where(s, extra, base)
 
 

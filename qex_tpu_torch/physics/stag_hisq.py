@@ -28,6 +28,11 @@ rounded to nearest even, as the JAX ``_split(l, bfloat16)``).  The
 kernels widen each bf16 link element to float32 and compute in float32,
 and the plain twins cast the links up to x's precision, so both compute
 the same operator on the same rounded links.
+
+Built on a block of a rank mesh (``parallel.mesh.use_mesh``), the
+backward links' shifts exchange faces, so the links are the block of the
+global build; the hop itself wraps the block locally, and
+``stag_shard.hop3_fix`` corrects its faces.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 
 from .. import _native
 from ..lattice import Lattice
+from ..parallel import mesh
 from . import stag_fast as sf
 from .stag_pallas import Geometry, _aligned, _join, _split, site_geometry
 
@@ -57,10 +63,11 @@ def new_stag8(s, links_dtype: torch.dtype = torch.float32) -> Stag8EO:
     """From a staggered.StaggeredEO or stag_fast.FastStagEO."""
     if not isinstance(s, sf.FastStagEO):
         s = sf.new_fast(s)
+    lm = mesh.active()
 
     def build(g_out, g_src, parity_out):
         c1 = [sf.shift_fast(g_src[mu].transpose(0, 1).conj(), mu, -1,
-                            parity_out, s.lat) for mu in range(4)]
+                            parity_out, s.lat, lm=lm) for mu in range(4)]
         l = torch.cat([0.5 * g_out, -0.5 * torch.stack(c1)])
         return _split(l, links_dtype).transpose(0, 1).contiguous()
 
@@ -225,11 +232,12 @@ def new_hisq16(s, links_dtype: torch.dtype = torch.float32) -> Hisq16EO:
         s = sf.new_fast3(s)
     if s.lat.dims[0] < 3:
         raise ValueError("the naik x hop needs an x extent of at least 3")
+    lm = mesh.active()
 
     def build(gf_out, gf_src, gl_out, gl_src, parity_out):
         def back(g, dist):
             return [sf.shift_fast(g[mu].transpose(0, 1).conj(), mu, -1,
-                                  parity_out, s.lat, dist)
+                                  parity_out, s.lat, dist, lm=lm)
                     for mu in range(4)]
         l = torch.cat([0.5 * gf_out, -0.5 * torch.stack(back(gf_src, 1)),
                        0.5 * gl_out, -0.5 * torch.stack(back(gl_src, 3))])

@@ -26,6 +26,15 @@ autograd carries that gradient back through the two fat7 levels.
 ``StagRootedFermion`` takes A^{-nf/4} and A^{+nf/8} as rational
 functions (``solvers.rational``), each from one multishift solve on
 kernel B1; its force is -sum_i r_i x_i^dag (dA) x_i.
+
+On a rank mesh's blocks (``parallel.mesh.use_mesh``) every term runs on
+this rank's block of the links and of its pseudofermion, its solves on
+the block kernels (``stag_shard.solve_route``) and its action values
+through float64 all-reduces (``parallel.halo.psum``).  The noise is
+drawn whole on every rank from the same seeded generator and then cut
+(:func:`gaussian_eta`), so that a run on blocks reproduces a run without
+a mesh; the whole draw is transient, about 50 MB of complex64 colour
+vector at 32^3x64, and freed before the trajectory records anything.
 """
 
 from __future__ import annotations
@@ -39,12 +48,20 @@ import torch
 from ..gauge import fat7
 from ..lattice import Lattice
 from ..ops import eo, linalg
+from ..parallel import mesh
+from ..parallel.halo import psum
 from ..solvers import cg, cgm
-from ..solvers.base import SolverParams, SolverStats
+from ..solvers.base import LOCAL, SolverParams, SolverStats
 from ..solvers.rational import RationalApprox, rational_approx
 from . import stag_fast as sf
 from . import stag_hisq as sh
 from . import stag_shard, stag_solve, staggered as st
+
+
+def _rel(r: torch.Tensor, b: torch.Tensor) -> float:
+    """|r|^2 / |b|^2 over the whole lattice (all-reduced on blocks)."""
+    return float(psum(linalg.norm2(r, torch.float64))
+                 / psum(linalg.norm2(b, torch.float64)))
 
 
 def _a_apply(lat: Lattice, bc: str, u: torch.Tensor, x_e: torch.Tensor,
@@ -64,12 +81,13 @@ def _ddag_e(lat: Lattice, bc: str, u: torch.Tensor, xi: torch.Tensor,
 def gaussian_eta(gen: torch.Generator, lat: Lattice, dtype: torch.dtype
                  ) -> torch.Tensor:
     """Full-lattice complex Gaussian with P ~ exp(-|xi|^2) (variance 1/2
-    per real component), drawn on ``gen``'s device."""
+    per real component), drawn on ``gen``'s device; under an active mesh
+    this rank's block of the whole draw (``parallel.mesh.cut``)."""
     rdtype = dtype.to_real()
     shape = lat.vector_shape()
     xr = torch.randn(shape, generator=gen, dtype=rdtype, device=gen.device)
     xi = torch.randn(shape, generator=gen, dtype=rdtype, device=gen.device)
-    return (torch.complex(xr, xi) * 0.7071067811865476).to(dtype)
+    return mesh.cut((torch.complex(xr, xi) * 0.7071067811865476).to(dtype))
 
 
 class _Solved(torch.autograd.Function):
@@ -123,7 +141,7 @@ class _QuadInv(torch.autograd.Function):
         x, _ = stag_solve.solve_ee(s, phi, m, params)
         ctx.save_for_backward(u, phi)
         ctx.x, ctx.lat, ctx.bc, ctx.m, ctx.params = x, lat, bc, m, params
-        return linalg.redot(phi, x, dtype=torch.float64)
+        return psum(linalg.redot(phi, x, dtype=torch.float64))
 
     @staticmethod
     def backward(ctx, g):
@@ -179,8 +197,8 @@ def make_quad_action(lat: Lattice, bc: str, m: float) -> Callable:
     """Differentiable S(u, phi) = Re[phi^dag A(u,m) phi] (PV boson)."""
 
     def s_act(u, phi):
-        return linalg.redot(phi, _a_apply(lat, bc, u, phi, m),
-                            dtype=torch.float64)
+        return psum(linalg.redot(phi, _a_apply(lat, bc, u, phi, m),
+                                 dtype=torch.float64))
 
     return s_act
 
@@ -211,7 +229,7 @@ class StagFermion:
         s = st.new_stag_eo(self.lat, u, self.bc)
         x, stats = stag_solve.solve_ee(s, phi, self.m, self.params)
         r = st.d2ee(s, x, self.m) - phi
-        return stats.iterations, float(linalg.norm2(r) / linalg.norm2(phi))
+        return stats.iterations, _rel(r, phi)
 
     def make_action_fn(self) -> Callable:
         return make_quad_inv_action(self.lat, self.bc, self.m,
@@ -283,7 +301,7 @@ class _HisqQuadInv(torch.autograd.Function):
         x, _ = ferm._solve_links((fl, ll), phi, params, ferm.m)
         ctx.save_for_backward(fl, ll, phi)
         ctx.x, ctx.ferm, ctx.params = x, ferm, params
-        return linalg.redot(phi, x, dtype=torch.float64)
+        return psum(linalg.redot(phi, x, dtype=torch.float64))
 
     @staticmethod
     def backward(ctx, g):
@@ -375,15 +393,16 @@ class HisqFermion:
                 return partial(ee, m=m), partial(ee_b, m=m)
             return partial(_fast3_ops(f3)[0], m=m), None
 
-        b, op, op_sloppy, dots, back = stag_shard.solve_route(
-            sp.mesh, f3, sf.to_fast(b_e, self.lat), sp.sloppy, m, whole_ops)
+        op, op_sloppy, dots = stag_shard.solve_route(
+            sp.mesh, f3, sp.sloppy, m, whole_ops)
         op_true, floor = None, 1e-12
         if op_sloppy is not None:
             op, op_true, floor = op_sloppy, op, 1e-5
         xf, stats = cg.cg_solve_restarted(
-            op, b, r2req=sp.r2req, maxits=sp.maxits, restarts=sp.restarts,
-            op_true=op_true, inner_r2req_floor=floor, dots=dots)
-        return sf.from_fast(back(xf), self.lat), stats
+            op, sf.to_fast(b_e, self.lat), r2req=sp.r2req, maxits=sp.maxits,
+            restarts=sp.restarts, op_true=op_true, inner_r2req_floor=floor,
+            dots=dots)
+        return sf.from_fast(xf, self.lat), stats
 
     def solve_ee(self, u: torch.Tensor, b_e: torch.Tensor,
                  sp: SolverParams | None = None, m: float | None = None,
@@ -404,7 +423,7 @@ class HisqFermion:
             links = self._links(u)
             x, stats = self.solve_ee(u, phi, links=links)
             r = st.d2ee3(st.new_stag3_eo(self.lat, *links), x, self.m) - phi
-        return stats.iterations, float(linalg.norm2(r) / linalg.norm2(phi))
+        return stats.iterations, _rel(r, phi)
 
     def make_action_fn(self) -> Callable:
         """Differentiable S(u, phi); the solve runs at ``force_params``
@@ -438,11 +457,12 @@ class HisqFermion:
             return cgm.cg_multishift(partial(st.d2dd3, s3, parity=0), b_e,
                                      shifts, **kw)
         f3 = sf.new_fast3(s3)
-        b, dd, _, dots, back = stag_shard.solve_route(
-            self.params.mesh, f3, sf.to_fast(b_e, self.lat), False, None,
+        dd, _, dots = stag_shard.solve_route(
+            self.params.mesh, f3, False, None,
             lambda: (_fast3_ops(f3)[1], None))
-        xs, stats = cgm.cg_multishift(dd, b, shifts, dots=dots, **kw)
-        return [sf.from_fast(back(x), self.lat) for x in xs], stats
+        xs, stats = cgm.cg_multishift(dd, sf.to_fast(b_e, self.lat), shifts,
+                                      dots=dots, **kw)
+        return [sf.from_fast(x, self.lat) for x in xs], stats
 
 
 # --- Hasenbusch ratios -------------------------------------------------------
@@ -499,7 +519,7 @@ def _ratio_action(quad: Callable, m1: float, m2: float) -> Callable:
     delta = m2 * m2 - m1 * m1
 
     def s_act(u, phi):
-        return (linalg.redot(phi, phi, dtype=torch.float64)
+        return (psum(linalg.redot(phi, phi, dtype=torch.float64))
                 + delta * quad(u, phi))
 
     return s_act
@@ -571,7 +591,7 @@ class _RootedQuad(torch.autograd.Function):
         s = ra.c0 * linalg.norm2(phi, torch.float64)
         for r, x in zip(ra.residues, xs):
             s = s + r * linalg.redot(phi, x, dtype=torch.float64)
-        return s
+        return psum(s)
 
     @staticmethod
     def backward(ctx, g):
@@ -666,26 +686,30 @@ class StagRootedFermion:
 
     def _shifted_op(self, u: torch.Tensor, b_e: torch.Tensor) -> tuple:
         """(A(m) on the layout the solves run in, b_e in that layout,
-        the map back to even-site vectors): the fast layout on 4-d
-        lattices (:func:`stag_solve.fast_ops`: kernel B1 on the card)."""
+        the map back to even-site vectors, the solves' global sums): the
+        fast layout on 4-d lattices (:func:`stag_solve.fast_ops`: kernel
+        B1 on the card; on the active mesh's blocks,
+        ``stag_shard.solve_route``)."""
         s = st.new_stag_eo(self.lat, u, self.bc)
         mm = self.m * self.m
         if self.lat.nd != 4:
             return (lambda x: st.d2dd(s, x, parity=0) + mm * x), b_e, \
-                (lambda x: x)
+                (lambda x: x), None
         bf = sf.to_fast(b_e, self.lat)
-        base, _ = stag_solve.fast_ops(sf.new_fast(s), bf)
+        fs = sf.new_fast(s)
+        base, _, dots = stag_shard.solve_route(
+            None, fs, False, None, lambda: stag_solve.fast_ops(fs, bf))
         return (lambda x: base(x) + mm * x), bf, \
-            partial(sf.from_fast, lat=self.lat)
+            partial(sf.from_fast, lat=self.lat), dots
 
     @torch.no_grad()
     def _multishift(self, u: torch.Tensor, phi: torch.Tensor, shifts,
                     sp: SolverParams) -> tuple[list[torch.Tensor],
                                                SolverStats]:
         """(A + s_i)^{-1} phi for every shift, one multishift CG."""
-        op, b, back = self._shifted_op(u, phi)
+        op, b, back, dots = self._shifted_op(u, phi)
         xs, stats = cgm.cg_multishift(op, b, list(shifts), r2req=sp.r2req,
-                                      maxits=sp.maxits)
+                                      maxits=sp.maxits, dots=dots or LOCAL)
         return [back(x) for x in xs], stats
 
     @torch.no_grad()
@@ -693,9 +717,10 @@ class StagRootedFermion:
                             ) -> torch.Tensor:
         """phi = A^{+nf/8} xi_e."""
         xi_e, _ = eo.pack(xi, self.lat.nd)
-        op, b, back = self._shifted_op(u, xi_e)
+        op, b, back, dots = self._shifted_op(u, xi_e)
         phi, _ = self._approx(self.nf, 8).apply(
-            op, b, r2req=self.params.r2req, maxits=self.params.maxits)
+            op, b, r2req=self.params.r2req, maxits=self.params.maxits,
+            dots=dots)
         return back(phi)
 
     def heatbath(self, gen: torch.Generator, u: torch.Tensor
@@ -714,7 +739,7 @@ class StagRootedFermion:
         with torch.no_grad():
             s = st.new_stag_eo(self.lat, u, self.bc)
             r = st.d2ee(s, xs[i0], self.m) + ra.poles[i0] * xs[i0] - phi
-        return stats.iterations, float(linalg.norm2(r) / linalg.norm2(phi))
+        return stats.iterations, _rel(r, phi)
 
     def make_action_fn(self) -> Callable:
         """Differentiable S(u, phi); the solve runs at ``force_params``

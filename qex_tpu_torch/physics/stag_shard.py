@@ -4,10 +4,12 @@ block plus the exact halo correction (port of
 
 Each rank of a ``parallel.mesh.LatticeMesh`` holds the block of the
 fast layout (nc, Th, Z, Y*X) its z and t coordinates select, and the
-same block of the pre-shifted term-major links of ``stag_hisq``: links
-are built once on the global lattice and then cut, so they carry the
-phases, the boundary signs and the backward links' shifts of the whole
-lattice.  The 8-term (plain staggered) or 16-term (fat + naik) hop runs
+same block of the pre-shifted term-major links of ``stag_hisq``, which
+it builds itself from its block of the gauge field: the phases come from
+the block's global coordinates, the antiperiodic sign from the global
+boundary, and the backward links' shifts exchange faces
+(``staggered.phase_links`` and ``stag_hisq.new_stag8`` under
+``parallel.mesh.use_mesh``).  The 8-term (plain staggered) or 16-term (fat + naik) hop runs
 on the block with local-periodic wraps, through the CUDA kernel for a
 CUDA tensor (``stag_hisq.dslash_stag8`` / ``dslash_hisq16``: B1/B1b,
 B2/B2b) and through its plain twin for a CPU tensor.  Its only error is
@@ -29,11 +31,13 @@ derive the parity from local coordinates), and the packed Th must
 divide; the 16 terms need local Z >= 3 and local Th >= 2
 (:func:`mesh_usable`).
 
-The solves (:func:`solve_ee_sharded`, :func:`solve_multi_sharded`) run
-the whole CG or multishift CG on the blocks, with every dot and norm a
-float64 block sum all-reduced over the group (``parallel.halo``), and
-gather the solution once at the end, so every rank returns the whole
-solution.
+The solves (:func:`solve_ee_sharded`, :func:`solve_multi_sharded`,
+and ``stag_solve``'s and ``stag_hmc``'s through :func:`solve_route`)
+take this rank's block of the right-hand side and of the links and
+return its block of the solution, with every dot and norm a float64
+block sum all-reduced over the group (``parallel.halo``).  There is no
+whole field to fall back on, so a mesh the block kernels cannot take
+raises a ``ValueError`` naming its local extents.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import torch
 
 from ..lattice import Lattice
 from ..parallel import halo
-from ..parallel.mesh import LatticeMesh
+from ..parallel.mesh import LatticeMesh, active, local_block, use_mesh
 from ..solvers import cg, cgm
 from ..solvers.base import LOCAL, SolverParams, SolverStats
 from . import stag_fast as sf
@@ -110,8 +114,7 @@ def _fast_slices(lm: LatticeMesh, coords=None) -> tuple[slice, slice]:
 def fast_block(lm: LatticeMesh, v: torch.Tensor) -> torch.Tensor:
     """This rank's block of a fast-layout field (..., Th, Z, Y*X),
     contiguous."""
-    th, z = _fast_slices(lm)
-    return v[..., th, z, :].contiguous()
+    return local_block(lm, v, "fast")
 
 
 def gather_fast(lm: LatticeMesh, block: torch.Tensor) -> torch.Tensor:
@@ -124,11 +127,22 @@ def gather_fast(lm: LatticeMesh, block: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def local_links(lm: LatticeMesh, p):
-    """This rank's block of a ``stag_hisq.Stag8EO`` or ``Hisq16EO``
-    (links built on the global lattice), on the local lattice."""
+def block_of(lm: LatticeMesh, f):
+    """This rank's block of a whole ``stag_fast.FastStagEO`` or
+    ``FastStag3EO``, on the local lattice (what ``staggered.new_stag_eo``
+    and ``stag_fast.new_fast`` build from the block under the mesh)."""
     lat_l = local_lattice(lm.lat, _sizes(lm))
-    return type(p)(lat_l, fast_block(lm, p.l_e), fast_block(lm, p.l_o))
+    if isinstance(f, sf.FastStag3EO):
+        return sf.FastStag3EO(lat_l, *(fast_block(lm, g) for g in (
+            f.gf_e, f.gf_o, f.gl_e, f.gl_o)))
+    return sf.FastStagEO(lat_l, fast_block(lm, f.g_e), fast_block(lm, f.g_o))
+
+
+def _check_block(lm: LatticeMesh, f) -> None:
+    if tuple(f.lat.dims) != tuple(lm.local_dims):
+        raise ValueError(f"links on lattice {f.lat.dims}: the mesh's "
+                         f"operators take this rank's block "
+                         f"{lm.local_dims}")
 
 
 # --- the local hop and its surface correction --------------------------------
@@ -188,8 +202,7 @@ def hop3_fix(lm: LatticeMesh, lat_l: Lattice, l: torch.Tensor,
                 "abtzk,btzk->atzk", lk(14, slice(None), slice(0, 3)), d_hi)
 
     if sizes[3] > 1:
-        xg, yg, zg = sf._coords(lat_l, x.device)
-        s_par = ((parity_out + xg + yg + zg) % 2) == 1     # (Z, Y*X)
+        s_par = sf.odd_t(lat_l, parity_out, x.device)     # (Z, Y*X)
         (lo, hi), (nxt, prv) = faces[3], halos[3]
         d_lo, d_hi = sign * (nxt - lo), sign * (prv - hi)
         zero = torch.zeros_like(d_lo[:, 0])
@@ -229,8 +242,8 @@ def _hop(lm: LatticeMesh, p, x: torch.Tensor, parity_out: int,
 
 def d2ee_sharded(lm: LatticeMesh, p, x: torch.Tensor, m: float
                  ) -> torch.Tensor:
-    """(m^2 - D_eo D_oe) x on blocks: ``p`` the local links
-    (:func:`local_links`), ``x`` this rank's even block."""
+    """(m^2 - D_eo D_oe) x on blocks: ``p`` the links built from this
+    rank's block (:func:`ops8`), ``x`` its even block."""
     _sizes(lm)
     t = _hop(lm, p, x, 1)
     return _hop(lm, p, t, 0, x_fuse=x, m2=m * m)
@@ -270,19 +283,23 @@ def _links_dtype(links: torch.Tensor, links_dtype) -> torch.dtype:
 
 def ops8(lm: LatticeMesh, fs: sf.FastStagEO, links_dtype=None) -> tuple:
     """``(d2ee(v, m), d2dd(v))`` on this rank's blocks of fast-layout
-    vectors, through the 8-term kernel (B1; B1b with bfloat16 links)."""
+    vectors, through the 8-term kernel (B1; B1b with bfloat16 links):
+    ``fs`` this rank's block of the links (:func:`block_of`)."""
     _sizes(lm)
-    p = local_links(lm, sh.new_stag8(fs, _links_dtype(fs.g_e, links_dtype)))
+    _check_block(lm, fs)
+    with use_mesh(lm):
+        p = sh.new_stag8(fs, _links_dtype(fs.g_e, links_dtype))
     return partial(d2ee_sharded, lm, p), partial(d2dd_sharded, lm, p,
                                                  parity=0)
 
 
 def ops16(lm: LatticeMesh, f3: sf.FastStag3EO, links_dtype=None) -> tuple:
     """``(d2ee3(v, m), d2dd3(v))`` on blocks through the 16-term kernel
-    (B2; B2b with bfloat16 links)."""
+    (B2; B2b with bfloat16 links), ``f3`` this rank's block."""
     _check_local3(local_lattice(lm.lat, _sizes(lm)))
-    p = local_links(lm, sh.new_hisq16(f3,
-                                      _links_dtype(f3.gf_e, links_dtype)))
+    _check_block(lm, f3)
+    with use_mesh(lm):
+        p = sh.new_hisq16(f3, _links_dtype(f3.gf_e, links_dtype))
     return partial(d2ee_sharded, lm, p), partial(d2dd_sharded, lm, p,
                                                  parity=0)
 
@@ -306,11 +323,12 @@ def solve_ee_sharded(lm: LatticeMesh, s, b_e: torch.Tensor, m: float,
                      ) -> tuple[torch.Tensor, SolverStats]:
     """Even-site solve of (m^2 - D_eo D_oe) x_e = b_e, domain-decomposed.
 
-    ``s`` a ``staggered.StaggeredEO`` or ``stag_fast.FastStagEO`` and
-    ``b_e`` the canonical even-site right-hand side, both whole on every
-    rank; returns the whole x_e on every rank.  ``params.sloppy`` takes
-    bf16 inner iterations (B1b) with true-residual restarts on B1 and
-    the inner floor 1e-5, as ``stag_solve.solve_ee``."""
+    ``s`` this rank's block of a ``staggered.StaggeredEO`` or
+    ``stag_fast.FastStagEO`` and ``b_e`` its block of the canonical
+    even-site right-hand side; returns its block of x_e.
+    ``params.sloppy`` takes bf16 inner iterations (B1b) with
+    true-residual restarts on B1 and the inner floor 1e-5, as
+    ``stag_solve.solve_ee``."""
     params = params or SolverParams()
     lat = lm.lat
     fs = s if isinstance(s, sf.FastStagEO) else sf.new_fast(s)
@@ -319,10 +337,10 @@ def solve_ee_sharded(lm: LatticeMesh, s, b_e: torch.Tensor, m: float,
     if op_sloppy is not None:
         op, op_true, floor = op_sloppy, op, 1e-5
     x, stats = cg.cg_solve_restarted(
-        op, fast_block(lm, sf.to_fast(b_e, lat)), r2req=params.r2req,
+        op, sf.to_fast(b_e, lat), r2req=params.r2req,
         maxits=params.maxits, restarts=params.restarts, op_true=op_true,
         inner_r2req_floor=floor, dots=halo.reductions(lm))
-    return sf.from_fast(gather_fast(lm, x), lat), stats
+    return sf.from_fast(x, lat), stats
 
 
 def solve_multi_sharded(lm: LatticeMesh, s3, b_e: torch.Tensor, masses,
@@ -330,29 +348,45 @@ def solve_multi_sharded(lm: LatticeMesh, s3, b_e: torch.Tensor, masses,
                         ) -> tuple[list[torch.Tensor], SolverStats]:
     """Multi-mass HISQ even-site solve (multishift CG on the 16-term
     operator on blocks), BASELINE config 5's solve domain-decomposed:
-    ``s3`` a ``staggered.Staggered3EO`` or ``stag_fast.FastStag3EO``;
-    returns the canonical-layout solutions, whole on every rank."""
+    ``s3`` this rank's block of a ``staggered.Staggered3EO`` or
+    ``stag_fast.FastStag3EO``, ``b_e`` its block of the right-hand
+    side; returns its blocks of the canonical-layout solutions."""
     params = params or SolverParams()
     lat = lm.lat
     f3 = s3 if isinstance(s3, sf.FastStag3EO) else sf.new_fast3(s3)
     dd, _ = sharded_ops(lm, f3)
     xs, stats = cgm.cg_multishift(
-        dd, fast_block(lm, sf.to_fast(b_e, lat)), [m * m for m in masses],
+        dd, sf.to_fast(b_e, lat), [m * m for m in masses],
         r2req=params.r2req, maxits=params.maxits, dots=halo.reductions(lm))
-    return [sf.from_fast(gather_fast(lm, x), lat) for x in xs], stats
+    return [sf.from_fast(x, lat) for x in xs], stats
 
 
-def solve_route(mesh: LatticeMesh | None, f, bf: torch.Tensor, sloppy: bool,
-                m: float | None, whole_ops) -> tuple:
-    """``(b, op, op_sloppy, dots, back)`` of a fast-layout solve of
-    ``bf``: on this rank's blocks of ``mesh`` (:func:`sharded_ops`,
-    all-reduced sums, ``back`` the gather) where :func:`mesh_usable`
-    accepts it, else on the whole field through ``whole_ops()`` ->
-    ``(op, op_sloppy)`` with one process's sums (replicated on every
-    rank of a mesh)."""
-    if mesh_usable(mesh, f.lat, naik=isinstance(f, sf.FastStag3EO)):
-        op, op_sloppy = sharded_ops(mesh, f, sloppy, m=m)
-        return (fast_block(mesh, bf), op, op_sloppy, halo.reductions(mesh),
-                partial(gather_fast, mesh))
-    op, op_sloppy = whole_ops()
-    return bf, op, op_sloppy, LOCAL, (lambda x: x)
+def require_usable(lm: LatticeMesh, naik: bool = False) -> None:
+    """Raise a ``ValueError`` naming the local extents where the block
+    kernels cannot take ``lm`` (:func:`mesh_usable`)."""
+    if not mesh_usable(lm, lm.lat, naik=naik):
+        raise ValueError(
+            f"rank geometry {lm.rank_geom} of lattice {lm.lat.dims} gives "
+            f"blocks {lm.local_dims}: the block kernels need x and y "
+            "unsplit, an even local Z and the packed T divisible"
+            + (", and for the 16 terms local Z >= 3 and local T/2 >= 2"
+               if naik else "") + "; there is no whole field to fall "
+            "back on")
+
+
+def solve_route(mesh: LatticeMesh | None, f, sloppy: bool, m: float | None,
+                whole_ops) -> tuple:
+    """``(op, op_sloppy, dots)`` of a fast-layout solve on ``f``'s
+    links: on this rank's blocks of ``mesh`` (default: the active mesh,
+    ``parallel.mesh.use_mesh``) through :func:`sharded_ops`, with
+    all-reduced sums, the right-hand side and the solution then being
+    blocks too; with no mesh on the whole field through ``whole_ops()``
+    -> ``(op, op_sloppy)`` with one process's sums.  A mesh the block
+    kernels cannot take raises (:func:`require_usable`)."""
+    lm = mesh if mesh is not None else active()
+    if lm is None:
+        op, op_sloppy = whole_ops()
+        return op, op_sloppy, LOCAL
+    require_usable(lm, naik=isinstance(f, sf.FastStag3EO))
+    op, op_sloppy = sharded_ops(lm, f, sloppy, m=m)
+    return op, op_sloppy, halo.reductions(lm)

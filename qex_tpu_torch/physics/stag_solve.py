@@ -39,26 +39,28 @@ def solve_ee(s: st.StaggeredEO, b_e: torch.Tensor, m: float,
     with links in the vector's precision (float32 on the card, kernel
     B1).  A CPU tensor takes the same route through the plain twins.
 
-    ``params.mesh`` runs the CG on this rank's blocks of the mesh
-    (``stag_shard.solve_route``: the same kernels on each block, halos
-    exchanged, sums all-reduced) and returns the whole solution.
+    ``params.mesh`` (or the active mesh, ``parallel.mesh.use_mesh``)
+    runs the CG on this rank's blocks (``stag_shard.solve_route``: the
+    same kernels on each block, halos exchanged, sums all-reduced):
+    ``s`` and ``b_e`` are then this rank's blocks, and so is the
+    solution.
     """
     if s.lat.nd == 4:
         bf = sf.to_fast(b_e, s.lat)
         fs = sf.new_fast(s)
-        b, op, op_sloppy, dots, back = stag_shard.solve_route(
-            params.mesh, fs, bf, params.sloppy, m,
+        op, op_sloppy, dots = stag_shard.solve_route(
+            params.mesh, fs, params.sloppy, m,
             lambda: fast_ops(fs, bf, params.sloppy, m=m))
         op_true, floor = None, 1e-12
         if op_sloppy is not None:
             op, op_true, floor = op_sloppy, op, 1e-5
-        xf, stats = cg.cg_solve_restarted(op, b, r2req=params.r2req,
+        xf, stats = cg.cg_solve_restarted(op, bf, r2req=params.r2req,
                                           maxits=params.maxits,
                                           restarts=params.restarts,
                                           op_true=op_true,
                                           inner_r2req_floor=floor,
                                           dots=dots)
-        return sf.from_fast(back(xf), s.lat), stats
+        return sf.from_fast(xf, s.lat), stats
     op = partial(st.d2ee, s, m=m)
     return cg.cg_solve_restarted(op, b_e, r2req=params.r2req,
                                  maxits=params.maxits,
@@ -145,8 +147,9 @@ def solve_multi(s: st.StaggeredEO, b_e: torch.Tensor, masses,
     bf = sf.to_fast(b_e, s.lat)
     fs = sf.new_fast(s)
     sloppy = params.sloppy and min(shifts) >= SLOPPY_MULTI_MIN_SHIFT
-    b, base, base_sloppy, dots, back = stag_shard.solve_route(
-        params.mesh, fs, bf, sloppy, None, lambda: fast_ops(fs, bf, sloppy))
+    base, base_sloppy, dots = stag_shard.solve_route(
+        params.mesh, fs, sloppy, None, lambda: fast_ops(fs, bf, sloppy))
+    b = bf
     floor = 1e-8 if bf.dtype == torch.complex64 else 1e-22
     if base_sloppy is not None:
         xs, stats = cgm.cg_multishift_refined(
@@ -160,7 +163,7 @@ def solve_multi(s: st.StaggeredEO, b_e: torch.Tensor, masses,
     else:
         xs, stats = cgm.cg_multishift(base, b, shifts, r2req=params.r2req,
                                       maxits=params.maxits, dots=dots)
-    return [sf.from_fast(back(x), s.lat) for x in xs], stats
+    return [sf.from_fast(x, s.lat) for x in xs], stats
 
 
 def solve_batched(s: st.StaggeredEO, bs: torch.Tensor, m: float,

@@ -12,6 +12,12 @@ Dslash is anti-hermitian, so the even-odd normal operator
 ``A = m^2 - D_eo D_oe`` on even sites is hermitian positive definite.
 This module is differentiable in the links; the fermion forces take
 their gradients through it.
+
+On a rank mesh's blocks (``parallel.mesh.use_mesh``) a ``Lattice``
+argument is the global lattice: the phases and boundary signs come from
+the block's global coordinates (the antiperiodic sign only on the ranks
+that hold the global last plane), the operators' shifts exchange faces,
+and an operator built on a block carries the block's lattice.
 """
 
 from __future__ import annotations
@@ -24,12 +30,26 @@ from ..device import resolve
 from ..lattice import Lattice
 from ..ops import eo, linalg
 from ..ops.shifts import shift
+from ..parallel import mesh
+
+
+def _block(lat: Lattice) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(dims, global origin) of the sites this process holds of
+    ``lat``: the active mesh's block, else the whole lattice."""
+    lm = mesh.active()
+    if lm is None or tuple(lat.dims) != tuple(lm.lat.dims):
+        return tuple(lat.dims), (0,) * lat.nd
+    return lm.local_dims, lm.origin
 
 
 def _coord(lat: Lattice, mu: int, device) -> torch.Tensor:
+    """Global coordinate along mu of the sites held (:func:`_block`),
+    broadcastable over them."""
+    dims, origin = _block(lat)
     shape = [1] * lat.nd
-    shape[mu] = lat.dims[mu]
-    return torch.arange(lat.dims[mu], device=device).reshape(shape)
+    shape[mu] = dims[mu]
+    return torch.arange(origin[mu], origin[mu] + dims[mu],
+                        device=device).reshape(shape)
 
 
 def staggered_phases(lat: Lattice, dtype: torch.dtype = torch.float32,
@@ -40,7 +60,7 @@ def staggered_phases(lat: Lattice, dtype: torch.dtype = torch.float32,
     (default: the CUDA card; raises without one)."""
     device = resolve(device)
     phases = []
-    csum = torch.zeros(lat.dims, dtype=torch.int64, device=device)
+    csum = torch.zeros(_block(lat)[0], dtype=torch.int64, device=device)
     for mu in range(lat.nd):
         phases.append(1.0 - 2.0 * (csum % 2).to(dtype))
         csum = csum + _coord(lat, mu, device)
@@ -60,7 +80,7 @@ def bc_signs(lat: Lattice, bc: str = "pppa",
     device = resolve(device)
     out = []
     for mu, c in enumerate(bc):
-        f = torch.ones(lat.dims, dtype=dtype, device=device)
+        f = torch.ones(_block(lat)[0], dtype=dtype, device=device)
         if c == "a":
             last = _coord(lat, mu, device) == lat.dims[mu] - 1
             f = torch.where(last, -f, f)
@@ -93,7 +113,7 @@ def new_stag_eo(lat: Lattice, u: torch.Tensor, bc: str = "pppa"
                 ) -> StaggeredEO:
     """Build the eo-packed operator from an (unphased) gauge field."""
     ge, go = eo.pack(phase_links(lat, u, bc), lat.nd)
-    return StaggeredEO(lat, ge, go)
+    return StaggeredEO(mesh.block_lattice(lat), ge, go)
 
 
 def dslash_eo(s: StaggeredEO, x_src: torch.Tensor, parity_out: int
@@ -151,7 +171,7 @@ def new_stag3_eo(lat: Lattice, fat: torch.Tensor, long: torch.Tensor
     """Pack pre-phased fat and long links into the eo operator."""
     fe, fo = eo.pack(fat, lat.nd)
     le, lo = eo.pack(long, lat.nd)
-    return Staggered3EO(lat, fe, fo, le, lo)
+    return Staggered3EO(mesh.block_lattice(lat), fe, fo, le, lo)
 
 
 def dslash3_eo(s: Staggered3EO, x_src: torch.Tensor, parity_out: int

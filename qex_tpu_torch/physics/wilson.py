@@ -25,6 +25,7 @@ import torch
 from ..lattice import Lattice
 from ..ops import eo
 from ..ops.shifts import shift
+from ..parallel import mesh
 from ..solvers import cg
 from ..solvers.base import MGParams, SolverParams, SolverStats
 from .staggered import bc_signs
@@ -158,7 +159,7 @@ def new_wilson_eo(lat: Lattice, u: torch.Tensor, m: float,
                   bc: str = "pppa") -> WilsonEO:
     w = new_wilson(lat, u, m, bc)
     ge, go = eo.pack(w.g, lat.nd)
-    return WilsonEO(lat, ge, go, m)
+    return WilsonEO(mesh.block_lattice(lat), ge, go, m)
 
 
 def wilson_hop_eo(w: WilsonEO, psi_src: torch.Tensor, parity_out: int
@@ -213,6 +214,11 @@ def solve_eo(w: WilsonEO, b: torch.Tensor,
 
     ``params.backend == "mg"``: dispatch to the K-cycle multigrid on
     the full (unreduced) operator.
+
+    ``params.mesh`` (or the active mesh, ``parallel.mesh.use_mesh``):
+    ``w`` and ``b`` are this rank's blocks and so is the solution; the
+    CGNE runs on the blocks through B3 (B3b) with exact face
+    corrections (``wilson_shard.solve_eo_sharded``).
     """
     from . import stag_fast as sf
     from . import wilson_fast as wf
@@ -223,6 +229,14 @@ def solve_eo(w: WilsonEO, b: torch.Tensor,
         x, stats, _ = solve_mg(WilsonD(lat, g, w.m), b, params)
         return x, stats
     b_e, b_o = eo.pack(b, lat.nd)
+    lm = params.mesh if params.mesh is not None else mesh.active()
+    if lm is not None:
+        from . import stag_fast as sf
+        from .wilson_shard import solve_eo_sharded
+        xf_e, xf_o, stats = solve_eo_sharded(
+            lm, w, sf.to_fast(b_e, lat), sf.to_fast(b_o, lat), params)
+        return eo.unpack(sf.from_fast(xf_e, lat), sf.from_fast(xf_o, lat),
+                         lat.nd), stats
     if lat.nd != 4:
         rhs = b_e + wilson_hop_eo(w, b_o, parity_out=0) / w.a
         x_e, stats = cg.cg_solve_restarted(

@@ -36,6 +36,7 @@ import torch
 
 from .. import _native
 from ..lattice import Lattice
+from ..parallel import mesh
 from . import stag_fast as sf
 from . import wilson as wl
 from . import wilson_fast as wf
@@ -80,7 +81,7 @@ class PallasWilsonEO:
 def _build_links_w(lat: Lattice, g_out: torch.Tensor, g_src: torch.Tensor,
                    parity_out: int, dtype: torch.dtype) -> torch.Tensor:
     c1 = [sf.shift_fast(g_src[mu].transpose(0, 1).conj(), mu, -1,
-                        parity_out, lat) for mu in range(4)]
+                        parity_out, lat, lm=mesh.active()) for mu in range(4)]
     l = torch.cat([0.5 * g_out, 0.5 * torch.stack(c1)])
     # (2, 8, 3, 3, Th, Z, YX) -> (8, 2, 3, 3, Th, Z, YX)
     return _split(l, dtype).transpose(0, 1).contiguous()

@@ -39,10 +39,13 @@ class SolverParams:
     restarts: defect-correction restart cap.
     sloppy: bf16-link inner CG iterations with true-residual restarts
     on the full-precision operator (``stag_solve.solve_ee``).
-    mesh: a ``parallel.mesh.LatticeMesh``: the staggered and HISQ
-    even-site solves run domain-decomposed over its ranks
-    (``physics.stag_shard``) where ``stag_shard.mesh_usable`` accepts it,
-    and replicated on every rank elsewhere.
+    mesh: a ``parallel.mesh.LatticeMesh``: the solves take this rank's
+    block of the right-hand side and return its block of the solution,
+    on the block kernels with all-reduced sums (``physics.stag_shard``,
+    ``physics.wilson_shard``); a ``LatticeFieldTheory`` with a mesh is
+    block-resident throughout.  There is no whole field to fall back
+    on: a mesh that ``stag_shard.mesh_usable`` refuses raises a
+    ``ValueError`` naming its local extents.
     backend: "cg" (CGNE / eo CG) or "mg" (K-cycle-multigrid-preconditioned
     GCR on the Wilson operator itself; ``physics.wilson.solve``/``solve_eo``
     dispatch on it), with ``mg`` its configuration (default MGParams()).

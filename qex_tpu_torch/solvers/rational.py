@@ -52,13 +52,16 @@ class RationalApprox:
         return acc
 
     def apply(self, base_op: Callable[[torch.Tensor], torch.Tensor],
-              b: torch.Tensor, *, r2req: float = 1e-12, maxits: int = 2000
-              ) -> tuple[torch.Tensor, SolverStats]:
+              b: torch.Tensor, *, r2req: float = 1e-12, maxits: int = 2000,
+              dots=None) -> tuple[torch.Tensor, SolverStats]:
         """r(A) b by one multishift CG on the positive semi-definite
-        operator ``base_op``; the poles become the shifts."""
+        operator ``base_op``; the poles become the shifts.  ``dots``
+        takes the global sums (``cgm.cg_multishift``)."""
         from . import cgm
+        from .base import LOCAL
         xs, stats = cgm.cg_multishift(base_op, b, list(self.poles),
-                                      r2req=r2req, maxits=maxits)
+                                      r2req=r2req, maxits=maxits,
+                                      dots=dots or LOCAL)
         acc = self.c0 * b
         for r, x in zip(self.residues, xs):
             acc = acc + r * x

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import ginibre
+from _torch_helpers import ginibre, single_threaded  # noqa: F401
 from qex_tpu.apps import staghmc_spv as japp
 from qex_tpu.io import checkpoint as jckpt
 from qex_tpu.lattice import Lattice as JLattice
@@ -23,6 +23,8 @@ from qex_tpu_torch.apps import staghmc_spv as app
 from qex_tpu_torch.io import checkpoint as ckpt
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.utils.config import HMCConfig
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DECK = str(Path(__file__).resolve().parent.parent / "qex_tpu_torch" / "apps"
            / "decks" / "config4_24.xml")

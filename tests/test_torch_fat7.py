@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, ginibre, n, random_links, rel, t
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
+                            single_threaded, t)
 from qex_tpu.gauge import fat7 as jf7
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu_torch.gauge import fat7
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import group
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 TOL = 1e-12

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, ginibre, n, random_links, rel, t
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
+                            single_threaded, t)
 from qex_tpu.gauge import action as jga
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.physics import stag_hmc as jsh
@@ -20,6 +21,8 @@ from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import group, linalg
 from qex_tpu_torch.physics import stag_hmc
 from qex_tpu_torch.solvers.base import SolverParams
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 BETA = 5.5

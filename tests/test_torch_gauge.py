@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_refs, ginibre, n, rel, t
+from _torch_helpers import (compile_refs, ginibre, n, rel, single_threaded, t)
 from qex_tpu.gauge import action as jga
 from qex_tpu.gauge import flow as jgf
 from qex_tpu.gauge import loops as jloops
@@ -28,6 +28,8 @@ from qex_tpu_torch.gauge import flow as gf
 from qex_tpu_torch.gauge import loops, wline
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import group, linalg
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 LAT, JLAT = Lattice(DIMS), JLattice(DIMS)

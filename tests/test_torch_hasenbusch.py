@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, n, random_links, rel, t
+from _torch_helpers import (compile_ref, n, random_links, rel, single_threaded,
+                            t)
 from qex_tpu.gauge import action as jga
 from qex_tpu.hmc import hmc as jhmc
 from qex_tpu.hmc import integrators as jint
@@ -40,6 +41,8 @@ from qex_tpu_torch.mcmc import builder
 from qex_tpu_torch.mcmc.theory import LatticeFieldTheory
 from qex_tpu_torch.physics import stag_hmc
 from qex_tpu_torch.solvers.base import SolverParams
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 R2 = 1e-20

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from _torch_helpers import (compile_ref, compile_refs, ginibre, n,
-                            random_links, rel, rel2, t)
+                            random_links, rel, rel2, single_threaded, t)
 from qex_tpu.gauge import action as jga
 from qex_tpu.hmc import hmc as jhmc
 from qex_tpu.lattice import Lattice as JLattice
@@ -48,6 +48,8 @@ from qex_tpu_torch.physics import stag_hmc
 from qex_tpu_torch.physics import staggered as st
 from qex_tpu_torch.solvers import cgm
 from qex_tpu_torch.solvers.base import SolverParams
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS4 = (4, 4, 4, 4)
 DIMS8 = (8, 4, 4, 8)

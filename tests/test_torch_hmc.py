@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_refs, n, random_links, rel, t
+from _torch_helpers import (compile_refs, n, random_links, rel,
+                            single_threaded, t)
 from qex_tpu.gauge import action as jga
 from qex_tpu.gauge import loops as jloops
 from qex_tpu.hmc import hmc as jhmc
@@ -32,6 +33,8 @@ from qex_tpu_torch.gauge import loops
 from qex_tpu_torch.hmc import hmc, integrators
 from qex_tpu_torch.mcmc import md
 from qex_tpu_torch.mcmc.theory import LatticeFieldTheory
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 DT = jnp.complex128

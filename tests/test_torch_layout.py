@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import ginibre, n, t
+from _torch_helpers import ginibre, n, single_threaded, t  # noqa: F401
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.ops import eo as jeo
 from qex_tpu.ops import shifts as jshifts
@@ -18,6 +18,8 @@ from qex_tpu.physics import stag_fast as jsf
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import eo, shifts
 from qex_tpu_torch.physics import stag_fast as sf
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 8)
 LAT, JLAT = Lattice(DIMS), JLattice(DIMS)
@@ -115,6 +117,7 @@ def test_package_imports_no_jax():
             "qex_tpu_torch.parallel.distributed",
             "qex_tpu_torch.parallel.dryrun",
             "qex_tpu_torch.physics.stag_shard", "qex_tpu_torch.bench.suite",
+            "qex_tpu_torch.physics.wilson_shard",
             "qex_tpu_torch.examples.ex0", "qex_tpu_torch.examples.ex1",
             "qex_tpu_torch.examples.harmonic"} <= set(mods)
     code = ("import sys, importlib; "

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, ginibre, n, random_links, rel, t
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
+                            single_threaded, t)
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.mg import coarse as jcoarse
 from qex_tpu.mg import kcycle as jkc
@@ -35,6 +36,8 @@ from qex_tpu_torch.mg import twogrid as tg
 from qex_tpu_torch.physics import wilson as wl
 from qex_tpu_torch.solvers import bicgstab, gcr
 from qex_tpu_torch.solvers.base import MGParams, SolverParams
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 TOL = 1e-10
 DIMS = (4, 4, 4, 4)

@@ -6,12 +6,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import ginibre, n, rel, t
+from _torch_helpers import ginibre, n, rel, single_threaded, t  # noqa: F401
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.ops import group as jgroup
 from qex_tpu.ops import linalg as jlinalg
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import group, linalg
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (2, 2, 4, 4)
 TOL = 1e-12

@@ -18,7 +18,7 @@ import torch
 
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import group, linalg
-from qex_tpu_torch.parallel.mesh import LatticeMesh
+from qex_tpu_torch.parallel.mesh import LatticeMesh, use_mesh
 from qex_tpu_torch.physics import stag_fast as sf
 from qex_tpu_torch.physics import stag_hisq as sh
 from qex_tpu_torch.physics import stag_shard as shd
@@ -64,14 +64,21 @@ def _ops(kind, f, ldt):
     return p, sh.d2ee_hisq16, sh.d2dd_hisq16
 
 
+def _block_links(lm, kind, f, ldt):
+    """The links a rank builds from its block of ``f``."""
+    with use_mesh(lm):
+        return _ops(kind, shd.block_of(lm, f), ldt)[0]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["stag8", "hisq16"])
 @pytest.mark.parametrize("ldt", [torch.float32, torch.bfloat16])
 def test_one_rank_mesh_is_the_kernel(cuda_device, kind, ldt):
     fs8, f16, x = _fields(cuda_device)
     p, d2ee, d2dd = _ops(kind, fs8 if kind == "stag8" else f16, ldt)
+    f = fs8 if kind == "stag8" else f16
     lm = LatticeMesh(Lattice(DIMS), (1, 1, 1, 1))
-    pl = shd.local_links(lm, p)
+    pl = _block_links(lm, kind, f, ldt)
     assert torch.equal(shd.d2ee_sharded(lm, pl, x, 0.05), d2ee(p, x, 0.05))
     assert torch.equal(shd.d2dd_sharded(lm, pl, x), d2dd(p, x))
 
@@ -90,7 +97,7 @@ def _rank(rank, init, geom, queue):
         for kind, f in (("stag8", fs8), ("hisq16", f16)):
             for ldt in (torch.float32, torch.bfloat16):
                 p, d2ee, d2dd = _ops(kind, f, ldt)
-                pl = shd.local_links(lm, p)
+                pl = _block_links(lm, kind, f, ldt)
                 xb = shd.fast_block(lm, x)
                 wrapper = sh.dslash_stag8 if kind == "stag8" \
                     else sh.dslash_hisq16

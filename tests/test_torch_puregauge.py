@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_refs, ginibre, n, rel, t
+from _torch_helpers import (compile_refs, ginibre, n, rel, single_threaded, t)
 from qex_tpu.apps import gauge_flow as jflow_app
 from qex_tpu.apps import staghmc_spv as japp
 from qex_tpu.gauge import action as jga
@@ -54,6 +54,8 @@ from qex_tpu_torch.io import checkpoint as ckpt
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import group, linalg
 from qex_tpu_torch.utils import config, resample
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 LAT, JLAT = Lattice(DIMS), JLattice(DIMS)

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_refs, ginibre, n, random_links, rel, t
+from _torch_helpers import (compile_refs, ginibre, n, random_links, rel,
+                            single_threaded, t)
 from qex_tpu.hmc import hmc as jhmc
 from qex_tpu.hmc import integrators as jint
 from qex_tpu.lattice import Lattice as JLattice
@@ -42,6 +43,8 @@ from qex_tpu_torch.physics import stag_hmc, stag_solve
 from qex_tpu_torch.physics import staggered as st
 from qex_tpu_torch.solvers import cg, cgm, rational
 from qex_tpu_torch.solvers.base import SolverParams
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 NDENSE = 32

@@ -14,13 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import compile_ref, ginibre, n, random_links, rel, t
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
+                            single_threaded, t)
 from qex_tpu.gauge import smear as jsmear
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.ops import linalg as jlinalg
 from qex_tpu_torch.gauge import smear
 from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.ops import linalg
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 SITES = (4, 3)          # lattice axes of the site-algebra fields

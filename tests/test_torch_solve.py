@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
-                            rel2, t)
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel, rel2,
+                            single_threaded, t)
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.ops import eo as jeo
 from qex_tpu.physics import stag_solve as jsolve
@@ -23,6 +23,8 @@ from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.physics import stag_solve, staggered as st
 from qex_tpu_torch.solvers import cg
 from qex_tpu_torch.solvers.base import SolverParams
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (4, 4, 4, 4)
 M = 0.1

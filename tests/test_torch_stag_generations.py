@@ -26,7 +26,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from _torch_helpers import compile_ref, ginibre, n, random_links, rel, rel2, t
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel, rel2,
+                            single_threaded, t)
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.physics import stag_fast as jsf
 from qex_tpu.physics import stag_pallas as jsp1
@@ -44,6 +45,8 @@ from qex_tpu_torch.physics import stag_pallas2 as sp2
 from qex_tpu_torch.physics import stag_pallas3 as sp3
 from qex_tpu_torch.physics import stag_pallas4 as sp4
 from qex_tpu_torch.physics import staggered as st
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 GEOMS = [(4, 4, 4, 4), (8, 4, 4, 8)]     # 8x4x4x8: X != Y
 TOL = 1e-12

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
-                            rel2, t)
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel, rel2,
+                            single_threaded, t)
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.physics import stag_fast as jsf
 from qex_tpu.physics import stag_pallas_hisq as jsph
@@ -22,6 +22,8 @@ from qex_tpu_torch.lattice import Lattice
 from qex_tpu_torch.physics import stag_fast as sf
 from qex_tpu_torch.physics import stag_hisq as sh
 from qex_tpu_torch.physics import staggered as st
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 DIMS = (8, 4, 4, 8)
 TOL = 1e-12

@@ -29,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (compile_ref, ginibre, n, random_links, rel,
-                            rel2, t)
+from _torch_helpers import (compile_ref, ginibre, n, random_links, rel, rel2,
+                            single_threaded, t)
 from qex_tpu.lattice import Lattice as JLattice
 from qex_tpu.observables import mesons as jmesons
 from qex_tpu.ops import eo as jeo
@@ -48,6 +48,8 @@ from qex_tpu_torch.physics import wilson as wl
 from qex_tpu_torch.physics import wilson_fast as wf
 from qex_tpu_torch.physics import wilson_pallas as wp
 from qex_tpu_torch.solvers.base import SolverParams
+
+pytestmark = pytest.mark.usefixtures("single_threaded")
 
 TOL = 1e-12
 M = 0.1
