@@ -73,6 +73,25 @@ Phases, each printed as one JSON line:
      blocked-jackknife errors of ACCEPT_CPU.json's float64 chain, its
      <exp(-dH)> within ACCEPT_Z blocked-jackknife errors of 1, and its
      acceptance be at least ACCEPT_MIN;
+ 19a. northstar_accept: in a process of its own, started here and
+     waited for after phase 41 (the chain is bound by host launches and
+     holds a few MB of the card, so phases 20-41 run beside it), the
+     production app staghmc_spv (complex64, the
+     deck's own seeds) on the committed deck northstar_accept.xml (the
+     north-star composition of config 4 at 4^4, tuned for acceptance)
+     for its warm-up and NS_N_MEAS measured trajectories with the deck's
+     -pbp_freq; the deck's sha256 must equal ACCEPT_NS_CPU.json's (the
+     JAX app's complex128 chain on the host, exp_accept_ns_cpu.py), the
+     plaquette mean and MEASpbp's mean in each Z_3 sector class of the
+     Polyakov loop (real, complex) lie within 3 combined blocked-
+     jackknife errors of that chain's, <exp(-dH)> within 3 errors of 1, the
+     acceptance be at least 0.5, on 20 blocks of at least 2 tau_int of
+     the reference's plaquette (the condensate on blocks of 2 tau_int of
+     its own; qex_tpu_torch.utils.chain.gate; the card's own tau_int
+     printed beside them); it launches B1 and no
+     other kernel, and no plain twin; it prints the distance from the
+     quenched control, s/trajectory, B1 launches per trajectory and peak
+     memory;
  20. puregauge_config3: BASELINE config 3 (16^3x32, Wilson beta 6.0,
      2MN, tau 1): 30 forced warm-ups at 10 steps, then 4 Metropolis
      trajectories at each of 20, 24, 32 and 48 steps, with dH, the
@@ -221,8 +240,9 @@ Phases, each printed as one JSON line:
      field; lat_util check and cmp;
  41. suite: qex_tpu_torch.bench.suite at 16^4, 0.02 s a measurement.
 The launch counters are set to 0 just before each main-path phase (4, 6,
-7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28-38, and in each rank
-of 39 before its solves) and read just after it; 19-21, the pure-gauge
+7, 9, 10, 13, 14, 15, the A/B of 17, 18-24, 26, 28-38, in each rank
+of 39 before its solves, and in 19a's process before its chain) and read
+just after it; 19, 20, 21, the pure-gauge
 apps of 22 and 33-38 must launch no kernel, staghmc_spv B1.  Then
 the card line, the kernels summary and, last, the ok line.  Any failed
 check raises, so the script exits non-zero and prints no ok line;
@@ -359,6 +379,11 @@ ACCEPT_MIN_BLOCKS = 20
 ACCEPT_Z = 3.0          # combined blocked-jackknife errors; the same
 #                         bound holds <exp(-dH)> to 1 (Creutz's equality)
 ACCEPT_MIN = 0.6
+# phase 19a: the north-star chain on the card against ACCEPT_NS_CPU.json;
+# the card side's measured trajectories (its warm-up is the deck's)
+NS_DECK = ROOT / "qex_tpu_torch" / "apps" / "decks" / "northstar_accept.xml"
+NS_N_MEAS = 160
+NS_TIMEOUT_S = 900      # the chain's process, from its start
 CONFIG3_NSTEPS = (20, 24, 32, 48)
 # apps_gauge's puregauge_hmc from a cold start at 8^4 (Symanzik beta 6):
 # the plaquette relaxes from 1 to ~0.75 in ~6 trajectories; at 30 steps
@@ -1741,6 +1766,151 @@ def phase_puregauge_accept(gen) -> dict:
     if not acc >= ACCEPT_MIN:
         raise AssertionError(f"puregauge_accept: acceptance {acc}")
     return res
+
+
+def northstar_chain(out_path: str) -> int:
+    """The chain of phase 19a, in the process that runs it: the port's
+    app on the deck with the launch counts set to 0 just before and read
+    just after, plain B1 calls on card tensors counted; writes the app's
+    lines, seconds (host clock, CUDA sync), counts and peak memory to
+    ``out_path`` as JSON."""
+    import re
+
+    from qex_tpu_torch.apps import staghmc_spv
+    from qex_tpu_torch.physics import stag_hisq as sh
+    from qex_tpu_torch.utils.config import HMCConfig
+    cfg = HMCConfig.from_xml(str(NS_DECK))
+    pbp_freq = int(re.search(r"<pbp_freq>\s*(\d+)\s*</pbp_freq>",
+                             NS_DECK.read_text()).group(1))
+    ntraj = cfg.no_metropolis_until + NS_N_MEAS
+    plain_calls = []
+    plain = sh.dslash_stag8_plain
+
+    def counted_plain(p8, x, *a, **k):
+        if x.is_cuda:
+            plain_calls.append(1)
+        return plain(p8, x, *a, **k)
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                         # count the main path only
+    sh.dslash_stag8_plain = counted_plain
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = staghmc_spv.main(["--xml", str(NS_DECK), "--ntraj",
+                                   str(ntraj), f"-pbp_freq={pbp_freq}"])
+        torch.cuda.synchronize()
+    finally:
+        sh.dslash_stag8_plain = plain
+    Path(out_path).write_text(json.dumps({
+        "rc": rc, "ntraj": ntraj, "seconds": time.perf_counter() - t0,
+        "launches": read_counts(), "plain_calls": len(plain_calls),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "lines": out.getvalue().splitlines()}))
+    return 0
+
+
+def start_northstar_accept() -> dict:
+    """Phase 19a, begun: check the deck against ACCEPT_NS_CPU.json and
+    start :func:`northstar_chain` in a process of its own on the card.
+    The chain is bound by its host launches (~2 s a 4^4 trajectory, a few
+    MB of the card), so the later phases run beside it; the process is
+    killed if the script ends first."""
+    import atexit
+    import hashlib
+    ref = json.loads((ROOT / "ACCEPT_NS_CPU.json").read_text())
+    sha = hashlib.sha256(NS_DECK.read_bytes()).hexdigest()
+    if sha != ref["deck_sha256"]:
+        raise AssertionError(f"northstar_accept: deck sha256 {sha} is not "
+                             f"the reference chain's {ref['deck_sha256']}")
+    out = ROOT / "build" / "northstar_accept.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    log = open(ROOT / "build" / "northstar_accept.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--northstar-chain",
+         str(out)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "out": out, "log": log, "ref": ref, "sha": sha,
+            "t0": time.perf_counter()}
+
+
+def finish_northstar_accept(run: dict) -> dict:
+    """Phase 19a, ended: wait for the chain and hold it against the
+    reference (``utils.chain.gate``); raises on a failed gate, a kernel
+    other than B1, a plain B1 call on the card or a failed process."""
+    from qex_tpu_torch.utils import chain
+    from qex_tpu_torch.utils.config import HMCConfig
+    rc = run["proc"].wait(timeout=max(
+        1.0, NS_TIMEOUT_S - (time.perf_counter() - run["t0"])))
+    wall = time.perf_counter() - run["t0"]
+    run["log"].close()
+    if rc != 0 or not run["out"].exists():
+        raise AssertionError(
+            f"northstar_accept: the chain's process exited {rc}: "
+            + (ROOT / "build" / "northstar_accept.err").read_text()[-3000:])
+    child = json.loads(run["out"].read_text())
+    lines, launches, ref = child["lines"], child["launches"], run["ref"]
+    (ROOT / "build" / "northstar_accept.log").write_text(
+        "\n".join(lines) + "\n")
+    if child["rc"] != 0:
+        raise AssertionError(f"northstar_accept: staghmc_spv exited "
+                             f"{child['rc']}")
+    cfg = HMCConfig.from_xml(str(NS_DECK))
+    series = chain.parse_app_lines(lines)
+    g = chain.gate(series, ref["stats"])
+    que = ref["quenched"]["stats"]["plaq"]
+    app_s = [float(ln.split("(")[1].split()[0]) for ln in lines
+             if ln.startswith(("ACCEPT", "REJECT"))]
+    ntraj = child["ntraj"]
+    res = {"phase": "northstar_accept", "dims": list(cfg.dims),
+           "tau": cfg.tau, "steps": [cfg.g_steps, cfg.f_steps,
+                                     cfg.pv_steps],
+           "warmup": cfg.no_metropolis_until, "n_meas": len(series["dH"]),
+           "deck_sha256": run["sha"], "acceptance": g["acceptance"],
+           "block": g["block"], "n_blocks": g["n_blocks"],
+           "pbp_block": g["pbp_block"], "pbp_n_blocks": g["pbp_n_blocks"],
+           "tau_int": g["tau_int"],
+           "plaq": g["plaq"], "ref_plaq": ref["stats"]["plaq"],
+           "z_plaq": g["z_plaq"], "real_share": g["real_share"],
+           "ref_real_share": ref["stats"]["real_share"],
+           **{k: g[k] for k in chain.CLASSES},
+           **{f"ref_{k}": ref["stats"][k] for k in chain.CLASSES},
+           "z_pbp": g["z_pbp"], "pbp_all_sectors": g["pbp"],
+           "exp_minus_dH": g["exp_minus_dH"], "z_creutz": g["z_creutz"],
+           "ref_acceptance": ref["acceptance"],
+           "ref_block": ref["stats"]["block"],
+           "z_quenched": chain.z_score(g["plaq"], que),
+           "ref_z_fermion": ref["z_fermion_by"],
+           "dH_rms": math.sqrt(statistics.fmean(
+               d * d for d in series["dH"])),
+           "seconds": child["seconds"],
+           "seconds_per_traj": child["seconds"] / ntraj,
+           "app_seconds_per_traj_median": statistics.median(app_s),
+           "wall_from_start_s": wall,
+           "b1_launches_per_traj": launches["stag8_dslash"] / ntraj,
+           "max_memory_allocated_gib": child["max_memory_allocated"] / 2**30,
+           "plain_twin_calls_on_card": child["plain_calls"],
+           "kernel_launches": launches, "failures": g["failures"]}
+    emit(res)
+    if launches["stag8_dslash"] <= 0:
+        raise AssertionError("northstar_accept: B1 never launched")
+    others = {k: v for k, v in launches.items()
+              if v and k != "stag8_dslash"}
+    if others or child["plain_calls"]:
+        raise AssertionError(f"northstar_accept: other kernels {others}, "
+                             f"{child['plain_calls']} plain B1 calls on the "
+                             "card")
+    if g["failures"]:
+        raise AssertionError("northstar_accept: " + "; ".join(g["failures"]))
+    return res
+
+
+def phase_northstar_accept() -> dict:
+    """Phase 19a alone: start the chain and wait for it."""
+    return finish_northstar_accept(start_northstar_accept())
 
 
 def phase_puregauge_config3(gen) -> dict:
@@ -4198,6 +4368,8 @@ def main() -> int:
         config4_theory, smear=HypCoefs(0.4, 0.5, 0.5), sloppy=True)
     if sys.argv[1:] == ["--profile"]:
         return profile_main()
+    if sys.argv[1:2] == ["--northstar-chain"]:
+        return northstar_chain(sys.argv[2])
 
     t_start = time.perf_counter()
     dev = phase_device()
@@ -4222,6 +4394,7 @@ def main() -> int:
     gtime = phase_stag_generations_time(gen)
     gcg = phase_stag_generations_cg(gen)
     phase_puregauge_accept(gen)
+    ns_run = start_northstar_accept()
     phase_puregauge_config3(gen)
     phase_flow(gen)
     phase_apps_gauge()
@@ -4246,6 +4419,7 @@ def main() -> int:
     sharded = phase_sharded()
     phase_io_formats(pario_rec=sharded["pario"])
     phase_suite()
+    ns_accept = finish_northstar_accept(ns_run)
     kern["stag8_dslash"]["max_abs_err"] = max(
         kern["stag8_dslash"]["max_abs_err"],
         ns32["stag8_dslash_vs_plain"]["max_abs_err"])
@@ -4260,7 +4434,7 @@ def main() -> int:
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(dev["smi"], flush=True)
     # each kernel's main path: the smeared config-4 trajectories, the
-    # app, the multi-mass and batched solves, the rooted and Hasenbusch
+    # app, the north-star chain, the multi-mass and batched solves, the rooted and Hasenbusch
     # runs, the 32^3x64 trajectory, the plain eigensolve, SVD and
     # calibration, the measure and eigs apps, the app's condensate and
     # the sharded solves, trajectories and dry run for the 8-term
@@ -4270,8 +4444,8 @@ def main() -> int:
     # mesons, MG A/B and the measure app's Wilson mesons for the Wilson
     # hop, the generation benchmark's A/B and CG for the older
     # staggered kernels
-    paths = {"stag8": (smeared, app, smulti, rhmc, hasen, ns32, eigs_stag,
-                       meas, app_pbp, sharded),
+    paths = {"stag8": (smeared, app, ns_accept, smulti, rhmc, hasen, ns32,
+                       eigs_stag, meas, app_pbp, sharded),
              "hisq16": (hsolve, hhmc, hasen, eigs_hisq, sharded),
              "wilson8": (wsolve, wmesons, wmg, meas, sharded),
              **{kind: (gtime, gcg) for kind in GEN_KINDS}}

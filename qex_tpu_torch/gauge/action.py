@@ -222,6 +222,14 @@ def gauge_force_hand(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
                         for mu in range(lat.nd)])
 
 
+def gauge_grad_hand(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
+                    ) -> torch.Tensor:
+    """torch-convention gradient of the plaq + adjplaq part of ``c`` from
+    the hand staples, -Sig^dag per direction (the conjugate of JAX's
+    ``gauge_grad_hand``); rect/pgm must be handled separately."""
+    return torch.stack([-linalg.adj(s) for s in _staple_sums(c, lat, u)])
+
+
 def force_from_grad(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """MD force F (pdot = -F) from torch's autograd gradient ``g`` of a
     real action with respect to the links u: F = -tah(U g^dag) per link,
@@ -279,7 +287,7 @@ def gauge_grad(c: GaugeActionCoeffs, lat: Lattice, u: torch.Tensor
     rect/pgm."""
     g = None
     if _has_hand(c):
-        g = torch.stack([-linalg.adj(s) for s in _staple_sums(c, lat, u)])
+        g = gauge_grad_hand(c, lat, u)
     if _has_ad(c):
         gr = torch.func.grad(partial(full_action, _ad_part(c), lat))(u)
         g = gr if g is None else g + gr

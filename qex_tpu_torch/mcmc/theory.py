@@ -222,7 +222,7 @@ class LatticeFieldTheory:
             return s_act(self._smear(u) if smeared else u, phi)
 
         def f_force(u, phi, f_action=f_action):
-            return force_from_action(lambda uu: f_action(uu, phi), u)
+            return stag_hmc.fermion_force(f_action, u, phi)
 
         def f_chain(v, phi, s_act=s_act):
             return _grad_at(lambda vv: s_act(vv, phi), v)

@@ -203,6 +203,13 @@ def make_quad_action(lat: Lattice, bc: str, m: float) -> Callable:
     return s_act
 
 
+def fermion_force(action_fn: Callable, u: torch.Tensor, phi: torch.Tensor
+                  ) -> torch.Tensor:
+    """TAH MD force of a fermion or boson action term at fixed phi."""
+    from ..gauge.action import force_from_action
+    return force_from_action(lambda uu: action_fn(uu, phi), u)
+
+
 @dataclasses.dataclass(frozen=True)
 class StagFermion:
     """Staggered pseudofermion term S = phi^dag A(m)^{-1} phi."""

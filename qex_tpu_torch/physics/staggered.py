@@ -200,6 +200,26 @@ def dslash3_eo(s: Staggered3EO, x_src: torch.Tensor, parity_out: int
     return 0.5 * out
 
 
+def dslash_full(lat: Lattice, g: torch.Tensor, x: torch.Tensor
+                ) -> torch.Tensor:
+    """Phase-free staggered hopping term on the full lattice (correctness
+    oracle): 1/2 sum_mu [g_mu(s) x(s+mu) - g_mu(s-mu)^dag x(s-mu)] on
+    links ``g`` phased by :func:`phase_links`."""
+    nd = lat.nd
+    out = None
+    for mu in range(nd):
+        term = (linalg.mv(g[mu], shift(x, mu, +1, nd))
+                - shift(linalg.mv_an(g[mu], x), mu, -1, nd))
+        out = term if out is None else out + term
+    return 0.5 * out
+
+
+def d_full(lat: Lattice, g: torch.Tensor, x: torch.Tensor, m: float
+           ) -> torch.Tensor:
+    """Full staggered operator D(m) x = m x + Dslash x."""
+    return m * x + dslash_full(lat, g, x)
+
+
 def dslash3_full(lat: Lattice, fat: torch.Tensor, long: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """Full-lattice fat + naik hopping term (correctness oracle)."""

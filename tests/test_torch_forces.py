@@ -83,6 +83,17 @@ def test_gradient_convention_helper(fields):
     assert rel(n(ga.gauge_force(ga.wilson(BETA), lat, t(u))), ref) < 1e-12
 
 
+def test_gauge_grad_hand(fields):
+    """The hand-staple gradient of the plaq + adjplaq part is the
+    conjugate of JAX's gauge_grad_hand (torch's gradient convention)."""
+    jlat, lat, u, _ = fields
+    jc = jga.GaugeActionCoeffs(plaq=BETA, adjplaq=0.4)
+    c = ga.GaugeActionCoeffs(plaq=BETA, adjplaq=0.4)
+    ref = compile_ref(lambda v: jga.gauge_grad_hand(jc, jlat, v), u)(u)
+    got = ga.gauge_grad_hand(c, lat, t(u))
+    assert rel(n(got), np.conj(np.asarray(ref))) < 1e-12
+
+
 @pytest.fixture(scope="module")
 def fermion_refs(fields):
     """JAX forces, one jit per action (the CG while_loop compiles once)."""
@@ -116,6 +127,17 @@ def test_boson_force(fields, fermion_refs):
     assert rel(n(got), fermion_refs[1]) < TOL
     assert abs(float(s_act(t(u), t(phi))) - float(fermion_refs[3])) \
         < TOL * abs(float(fermion_refs[3]))
+
+
+def test_fermion_force_function(fields):
+    """stag_hmc.fermion_force against JAX's on the Pauli-Villars term (no
+    solve, so to 1e-12)."""
+    jlat, lat, u, phi = fields
+    ref = compile_ref(lambda v, p: jsh.fermion_force(
+        jsh.make_quad_action(jlat, "pppa", MB), v, p), u, phi)(u, phi)
+    got = stag_hmc.fermion_force(stag_hmc.make_quad_action(lat, "pppa", MB),
+                                 t(u), t(phi))
+    assert rel(n(got), ref) < 1e-12
 
 
 def test_force_params_reach_the_force_solve(fields):

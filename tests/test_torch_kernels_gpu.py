@@ -501,3 +501,23 @@ def test_stag_generations_cg_on_card(cuda_device):
         assert float((r.abs() ** 2).sum() / (b.abs() ** 2).sum()) <= 1e-9
         its[kind] = stats.iterations
     assert all(abs(n - its["s8"]) <= 2 for n in its.values()), its
+
+
+@pytest.mark.gpu
+def test_stag8_refuses_nc2_on_card(cuda_device):
+    """The hop kernels are 3x3, as the JAX Pallas kernels are: a staggered
+    solve at Nc = 2 on the card raises (no silent fallback to the plain
+    operator); the host solve at Nc = 2 is tests/test_torch_nc.py's."""
+    from qex_tpu_torch.physics import stag_solve
+    from qex_tpu_torch.solvers.base import SolverParams
+    lat = Lattice((4, 4, 4, 4), nc=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    u = torch.stack([linalg.expm(0.5 * group.random_tah(
+        gen, lat.dims, 2, torch.complex64)) for _ in range(4)])
+    b = torch.randn((2,) + lat.dims, dtype=torch.complex64, generator=gen,
+                    device=cuda_device)
+    before = sh.dslash_stag8.launches
+    with pytest.raises(ValueError, match="links must be"):
+        stag_solve.solve(st.new_stag_eo(lat, u, "pppp"), b, 0.2,
+                         SolverParams(r2req=1e-10))
+    assert sh.dslash_stag8.launches == before

@@ -56,6 +56,22 @@ def test_phases_and_bc_exact():
         st.bc_signs(lat, "ppp")
 
 
+@pytest.mark.parametrize("bc", ["pppa", "apap"])
+def test_d_full(bc):
+    """The full-lattice oracle D(m) = m + Dslash at 4^4 on phased links."""
+    rng = np.random.default_rng(5)
+    dims = (4, 4, 4, 4)
+    jlat, lat = JLattice(dims), Lattice(dims)
+    u = random_links(rng, jlat)
+    x = ginibre(rng, (3,) + dims)
+    ref_d, ref_dslash = compile_ref(lambda v, y: (
+        jst.d_full(jlat, jst.phase_links(jlat, v, bc), y, 0.3),
+        jst.dslash_full(jlat, jst.phase_links(jlat, v, bc), y)), u, x)(u, x)
+    g = st.phase_links(lat, t(u), bc)
+    assert rel(n(st.d_full(lat, g, t(x), 0.3)), ref_d) < TOL
+    assert rel(n(st.dslash_full(lat, g, t(x))), ref_dslash) < TOL
+
+
 def test_new_stag_eo_links(ops):
     _, _, _, _, js, s = ops
     assert rel(n(s.g_e), js.g_e) < TOL
