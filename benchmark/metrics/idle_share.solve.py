@@ -1,0 +1,6 @@
+"""idle_share.solve: percent of the profiled solves in which no kernel,
+copy or set ran on the card (union of the device intervals)."""
+
+
+def read(t):
+    return t.idle_share()
